@@ -56,6 +56,23 @@
 
 #include <cuda_runtime.h>
 
+// Per-phase cycle counts: built with -DADMM_CHUNK_PROFILE, thread 0 of
+// every block adds clock64() differences between the block-wide barriers
+// that close each phase into prof[block][phase]; the default build
+// compiles this out.
+#define ADMM_PHASES "load,rrow,kx,aeq_pv,rows,store"
+constexpr int kPhases = 6;
+#ifdef ADMM_CHUNK_PROFILE
+#define PROF_MARK(k)                                  \
+  if (tid == 0) {                                     \
+    const long long t_ = clock64();                   \
+    prof_acc[k] += t_ - prof_t;                       \
+    prof_t = t_;                                      \
+  }
+#else
+#define PROF_MARK(k)
+#endif
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -176,8 +193,13 @@ admm_chunk_kernel(Dims dm, int n_iters, float sigma, float alpha,
                   const float* __restrict__ g_x, const float* __restrict__ g_z,
                   const float* __restrict__ g_yh, const float* __restrict__ g_yeh,
                   float* __restrict__ o_x, float* __restrict__ o_z,
-                  float* __restrict__ o_yh, float* __restrict__ o_yeh) {
+                  float* __restrict__ o_yh, float* __restrict__ o_yeh,
+                  long long* __restrict__ prof) {
   extern __shared__ float smem[];
+#ifdef ADMM_CHUNK_PROFILE
+  long long prof_acc[kPhases] = {0, 0, 0, 0, 0, 0};
+  long long prof_t = clock64();
+#endif
   const int S = dm.S, R = dm.R, F = dm.F, D = dm.D, n = dm.n, m = dm.m;
   const int NR = dm.NR, C = dm.C, NZ = NR * C;
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -229,6 +251,7 @@ admm_chunk_kernel(Dims dm, int n_iters, float sigma, float alpha,
   // the G^T partials of the initial state
   rows_update_and_reduce(dm, false, z, yh, h, nrm, sm, Pv, W, alpha, yci, warp, lane);
   __syncthreads();
+  PROF_MARK(0)
 
   for (int it = 0; it < n_iters; ++it) {
     // (1) rrow = sigma x + rho_e Aeq^T q + rho_i G^T (z - yh), kParts lanes
@@ -253,10 +276,12 @@ admm_chunk_kernel(Dims dm, int n_iters, float sigma, float alpha,
       if (idx < n && part == 0) rrow[idx] = sigma * x[idx] + t;
     }
     __syncthreads();
+    PROF_MARK(1)
 
     // (2) xt = clip(Kx rrow)
     warp_rows_matvec(kx, rrow, xt, n, n, warp, lane, 1e6f);
     __syncthreads();
+    PROF_MARK(2)
 
     // (3) Aeq xt; pos/vel/acc of xt at every (segment, sample); relaxed x
     warp_rows_matvec(aeq, xt, veq, m, n, warp, lane, 0.f);
@@ -271,6 +296,7 @@ admm_chunk_kernel(Dims dm, int n_iters, float sigma, float alpha,
     }
     for (int i = tid; i < n; i += kThreads) x[i] = alpha * xt[i] + (1.f - alpha) * x[i];
     __syncthreads();
+    PROF_MARK(3)
 
     // (4) relaxation, projection and scaled-dual updates; the next
     // iteration's G^T partials and equality residual q
@@ -280,6 +306,7 @@ admm_chunk_kernel(Dims dm, int n_iters, float sigma, float alpha,
       q[k] = beq[k] - yeh[k];
     }
     __syncthreads();
+    PROF_MARK(4)
   }
 
   for (int i = tid; i < n; i += kThreads) o_x[(size_t)b * n + i] = x[i];
@@ -288,6 +315,12 @@ admm_chunk_kernel(Dims dm, int n_iters, float sigma, float alpha,
     o_yh[(size_t)b * NZ + i] = yh[i];
   }
   for (int i = tid; i < m; i += kThreads) o_yeh[(size_t)b * m + i] = yeh[i];
+#ifdef ADMM_CHUNK_PROFILE
+  __syncthreads();
+  PROF_MARK(5)
+  if (tid == 0)
+    for (int k = 0; k < kPhases; ++k) prof[(size_t)b * kPhases + k] = prof_acc[k];
+#endif
 }
 
 size_t smem_floats(const Dims& d) {
@@ -313,7 +346,7 @@ int admm_chunk_launch(int B, int S, int R, int F, int D, int m, int n_iters,
                       const float* rhoi, const float* rhoe, const float* bas,
                       const float* x, const float* z, const float* yh,
                       const float* yeh, float* ox, float* oz, float* oyh,
-                      float* oyeh, void* stream) {
+                      float* oyeh, long long* prof, void* stream) {
   Dims d{S, R, F, D, S * 3 * D, m, S * R, F + kBoxSlots};
   if (d.C > 64) return (int)cudaErrorInvalidValue;
   const size_t bytes = smem_floats(d) * sizeof(float);
@@ -324,7 +357,7 @@ int admm_chunk_launch(int B, int S, int R, int F, int D, int m, int n_iters,
   if (err != cudaSuccess) return (int)err;
   admm_chunk_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       d, n_iters, sigma, alpha, kx, aeq, beq, nrm, h, sm, rhoi, rhoe, bas, x, z,
-      yh, yeh, ox, oz, oyh, oyeh);
+      yh, yeh, ox, oz, oyh, oyeh, prof);
   return (int)cudaGetLastError();
 }
 
@@ -333,6 +366,9 @@ size_t admm_chunk_smem_bytes(int S, int R, int F, int D, int m) {
   return smem_floats(Dims{S, R, F, D, S * 3 * D, m, S * R, F + kBoxSlots}) *
          sizeof(float);
 }
+
+// Phases of the profile build, comma-separated, in prof's column order.
+const char* admm_chunk_phase_names() { return ADMM_PHASES; }
 
 const char* admm_chunk_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -63,13 +63,15 @@ def _nvcc() -> str:
 
 
 @functools.cache
-def build() -> dict:
+def build(profile: bool = False) -> dict:
     """Compile the kernel into BUILD_DIR (keyed by a hash of the source and
-    flags) unless that library exists.  Returns {'path', 'seconds',
-    'ptxas'}: build wall time (0 if it was already built) and the
-    `-Xptxas -v` report (registers, shared memory, spills)."""
+    flags) unless that library exists.  `profile` builds the variant that
+    records per-phase cycle counts (-DADMM_CHUNK_PROFILE).  Returns {'path',
+    'seconds', 'ptxas'}: build wall time (0 if it was already built) and
+    the `-Xptxas -v` report (registers, shared memory, spills)."""
+    flags = NVCC_FLAGS + (["-DADMM_CHUNK_PROFILE"] if profile else [])
     src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"admm_chunk_{key}.so"
     log = BUILD_DIR / f"admm_chunk_{key}.log"
@@ -80,7 +82,7 @@ def build() -> dict:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+        res = subprocess.run([_nvcc(), *flags, "-o", tmp, str(SOURCE)],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
@@ -96,15 +98,16 @@ def build() -> dict:
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
+def _library(profile: bool = False) -> ctypes.CDLL:
+    lib = ctypes.CDLL(build(profile)["path"])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.admm_chunk_launch.argtypes = [i] * 7 + [f, f] + [p] * 18
+    lib.admm_chunk_launch.argtypes = [i] * 7 + [f, f] + [p] * 19
     lib.admm_chunk_launch.restype = i
     lib.admm_chunk_smem_bytes.argtypes = [i] * 5
     lib.admm_chunk_smem_bytes.restype = ctypes.c_size_t
     lib.admm_chunk_error_string.argtypes = [i]
     lib.admm_chunk_error_string.restype = ctypes.c_char_p
+    lib.admm_chunk_phase_names.restype = ctypes.c_char_p
     return lib
 
 
@@ -170,8 +173,15 @@ def admm_chunk(x, z, yh, yeh, kx, aeq, beq, normals, h, seg_mask, rho_i,
                                     sigma, alpha)
     if x.device.type != "cuda":
         raise ValueError(f"admm_chunk: no kernel for device {x.device}")
+    outs = _launch(_library(), x, z, yh, yeh, kx, aeq, beq, normals, h,
+                   seg_mask, rho_i, rho_e, basis, n_iters, sigma, alpha, None)
+    admm_chunk.launches += 1
+    return outs
+
+
+def _launch(lib, x, z, yh, yeh, kx, aeq, beq, normals, h, seg_mask, rho_i,
+            rho_e, basis, n_iters, sigma, alpha, prof):
     B, n, S, R, F, D, m = _dims(x, z, yeh, normals)
-    lib = _library()
     outs = [torch.empty_like(t) for t in (x, z, yh, yeh)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -179,15 +189,30 @@ def admm_chunk(x, z, yh, yeh, kx, aeq, beq, normals, h, seg_mask, rho_i,
             B, S, R, F, D, m, int(n_iters), float(sigma), float(alpha),
             *(t.data_ptr() for t in (kx, aeq, beq, normals, h, seg_mask,
                                      rho_i, rho_e, basis, x, z, yh, yeh)),
-            *(t.data_ptr() for t in outs), stream)
+            *(t.data_ptr() for t in outs),
+            None if prof is None else prof.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"admm_chunk: launch failed at S={S} R={R} F={F} D={D} m={m}: "
             f"cudaError {err} ({lib.admm_chunk_error_string(err).decode()}); "
             f"the kernel takes F + {BOX_SLOTS} <= 64 slots per row and one "
             f"scenario's state in one block's shared memory")
-    admm_chunk.launches += 1
     return tuple(outs)
+
+
+def phase_cycles(*args, n_iters: int, sigma: float, alpha: float):
+    """One launch of the profile build of the kernel (CUDA tensors, the
+    arguments of `admm_chunk`): returns (phase names, (B, phases) int64 SM
+    cycles per block and phase, summed over the iterations).  Not counted
+    in `admm_chunk.launches`: it is a measurement, not the main path."""
+    _check(*args)
+    lib = _library(profile=True)
+    names = lib.admm_chunk_phase_names().decode().split(",")
+    prof = torch.zeros((args[0].shape[0], len(names)), dtype=torch.int64,
+                       device=args[0].device)
+    _launch(lib, *args, n_iters, sigma, alpha, prof)
+    torch.cuda.synchronize(args[0].device)
+    return names, prof.cpu()
 
 
 admm_chunk.launches = 0

@@ -5,7 +5,12 @@ Runs `allocnet_tpu_torch.ops.admm.solve_qp` on the deploy batch (B=1024,
 `QPConfig()`, `SolverConfig()`, bench.py's seed 123) under
 `torch.profiler`, after a warm-up, and prints the device time by kernel
 name (largest first), the number of kernel launches, the wall time of the
-profiled solves and the share of it the device spent idle.
+profiled solves and the share of it the device spent idle.  Then it runs
+one deploy chunk (150 iterations from the solve's first state) through the
+profile build of the admm_chunk kernel and prints its per-phase SM cycles:
+the mean over blocks of each phase's cycles per iteration (load and store
+once per launch), as thread 0 of each block reads clock64() at the
+barriers.
 
     python3 -m allocnet_tpu_torch.utils.profile_solve [--reps 3] [--top 25]
 
@@ -33,7 +38,7 @@ def main():
         print("profile_solve: no CUDA device", file=sys.stderr)
         return 2
     from allocnet_tpu_torch.config import QPConfig, SolverConfig
-    from allocnet_tpu_torch.ops import admm, qp
+    from allocnet_tpu_torch.ops import admm, admm_chunk, qp
     from allocnet_tpu_torch.utils import scenarios
     from allocnet_tpu_torch.utils.device import resolve_device
 
@@ -72,7 +77,36 @@ def main():
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]:
         print(f"{t / 1e3 / args.reps:16.3f} {t / busy:6.3f} "
               f"{count[name] // args.reps:9d}  {name[:100]}")
+    print_phase_cycles(data, scfg, admm, admm_chunk, qp)
     return 0
+
+
+def print_phase_cycles(data, scfg, admm, admm_chunk, qp):
+    """Per-phase cycles of one deploy chunk through the profile build."""
+    B = data.times.shape[0]
+    x, z, y = admm.warm_start(data)
+    rho_i, _ = admm.initial_rho(data, scfg, data.times.dtype)
+    rho_e = rho_i * scfg.rho_eq_scale
+    M = qp.normal_matrix(data, scfg.sigma, rho_e, rho_i)
+    kx = admm_chunk.fused_refined_inverse(M, admm.spd_inverse(M))
+    aeq, beq, nrm, h, sm, basis = admm_chunk.pack_scenario(data)
+    args = (x.reshape(B, -1).contiguous(),
+            admm_chunk.ineq_pack({k: z[k] for k in qp.INEQ_KEYS}),
+            admm_chunk.ineq_pack({k: y[k] for k in qp.INEQ_KEYS}),
+            qp.tree_flat({k: y[k] for k in qp.EQ_KEYS}, qp.EQ_KEYS).contiguous(),
+            kx, aeq, beq, nrm, h, sm, rho_i.contiguous(), rho_e.contiguous(),
+            basis)
+    it = scfg.iters_per_chunk
+    names, prof = admm_chunk.phase_cycles(*args, n_iters=it,
+                                          sigma=scfg.sigma, alpha=scfg.alpha)
+    mean = prof.double().mean(0)
+    total = float(mean.sum())
+    print(f"admm_chunk phases, B={B} x {it} iterations (profile build; SM "
+          f"cycles, mean over blocks): {total:.0f} cycles per block")
+    print(f"{'phase':>8} {'cycles/launch':>14} {'cycles/iter':>12} {'share':>6}")
+    for name, c in zip(names, mean.tolist()):
+        per = c if name in ("load", "store") else c / it
+        print(f"{name:>8} {c:14.0f} {per:12.1f} {c / total:6.3f}")
 
 
 if __name__ == "__main__":
