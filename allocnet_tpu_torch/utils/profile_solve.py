@@ -7,10 +7,12 @@ Runs `allocnet_tpu_torch.ops.admm.solve_qp` on the deploy batch (B=1024,
 name (largest first), the number of kernel launches, the wall time of the
 profiled solves and the share of it the device spent idle.  Then it runs
 one deploy chunk (150 iterations from the solve's first state) through the
-profile build of the admm_chunk kernel and prints its per-phase SM cycles:
-the mean over blocks of each phase's cycles per iteration (load and store
+profile build of the admm_chunk kernel and prints its per-phase SM cycles
+(mean over blocks): each phase's wall cycles per iteration (load and store
 once per launch), as thread 0 of each block reads clock64() at the
-barriers.
+barriers, and the busy cycles of the phase's slowest warp and of the mean
+warp (16 per block); once for the whole batch and once for 132 scenarios,
+one block per SM.
 
     python3 -m allocnet_tpu_torch.utils.profile_solve [--reps 3] [--top 25]
 
@@ -77,36 +79,40 @@ def main():
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]:
         print(f"{t / 1e3 / args.reps:16.3f} {t / busy:6.3f} "
               f"{count[name] // args.reps:9d}  {name[:100]}")
-    print_phase_cycles(data, scfg, admm, admm_chunk, qp)
+    print_phase_cycles(data, scfg, admm_chunk)
     return 0
 
 
-def print_phase_cycles(data, scfg, admm, admm_chunk, qp):
+def print_phase_cycles(data, scfg, admm_chunk):
     """Per-phase cycles of one deploy chunk through the profile build."""
     B = data.times.shape[0]
-    x, z, y = admm.warm_start(data)
-    rho_i, _ = admm.initial_rho(data, scfg, data.times.dtype)
-    rho_e = rho_i * scfg.rho_eq_scale
-    M = qp.normal_matrix(data, scfg.sigma, rho_e, rho_i)
-    kx = admm_chunk.fused_refined_inverse(M, admm.spd_inverse(M))
-    aeq, beq, nrm, h, sm, basis = admm_chunk.pack_scenario(data)
-    args = (x.reshape(B, -1).contiguous(),
-            admm_chunk.ineq_pack({k: z[k] for k in qp.INEQ_KEYS}),
-            admm_chunk.ineq_pack({k: y[k] for k in qp.INEQ_KEYS}),
-            qp.tree_flat({k: y[k] for k in qp.EQ_KEYS}, qp.EQ_KEYS).contiguous(),
-            kx, aeq, beq, nrm, h, sm, rho_i.contiguous(), rho_e.contiguous(),
-            basis)
+    args = admm_chunk.chunk_inputs(data, scfg)
     it = scfg.iters_per_chunk
-    names, prof = admm_chunk.phase_cycles(*args, n_iters=it,
-                                          sigma=scfg.sigma, alpha=scfg.alpha)
-    mean = prof.double().mean(0)
-    total = float(mean.sum())
-    print(f"admm_chunk phases, B={B} x {it} iterations (profile build; SM "
-          f"cycles, mean over blocks): {total:.0f} cycles per block")
-    print(f"{'phase':>8} {'cycles/launch':>14} {'cycles/iter':>12} {'share':>6}")
-    for name, c in zip(names, mean.tolist()):
-        per = c if name in ("load", "store") else c / it
-        print(f"{name:>8} {c:14.0f} {per:12.1f} {c / total:6.3f}")
+    # the deploy batch (two scenarios per SM), then its first 132 scenarios
+    # alone (one block per SM on a 132-SM card: no other block's warps
+    # between a phase's instructions)
+    for count in (B, 132):
+        sub = tuple(a[:count].contiguous() if a.dim() and a.shape[0] == B
+                    else a for a in args)
+        names, prof = admm_chunk.phase_cycles(*sub, n_iters=it,
+                                              sigma=scfg.sigma,
+                                              alpha=scfg.alpha)
+        mean = prof.double().mean(0)          # (3, phases)
+        total = float(mean[0].sum())
+        print(f"admm_chunk phases, B={count} x {it} iterations (profile "
+              f"build; SM cycles, mean over blocks): {total:.0f} cycles per "
+              f"block")
+        print(f"{'phase':>8} {'cycles/launch':>14} {'share':>6} "
+              f"{'wall/iter':>10} {'slowest warp busy/iter':>23} "
+              f"{'mean warp busy/iter':>20}")
+        for k, name in enumerate(names):
+            c = float(mean[0, k])
+            if name in ("load", "store"):
+                print(f"{name:>8} {c:14.0f} {c / total:6.3f}")
+                continue
+            print(f"{name:>8} {c:14.0f} {c / total:6.3f} {c / it:10.1f} "
+                  f"{float(mean[1, k]) / it:23.1f} "
+                  f"{float(mean[2, k]) / it / 16:20.1f}")
 
 
 if __name__ == "__main__":

@@ -125,3 +125,22 @@ def random_scenarios(
         times[b, :L] = tlb * time_slack
 
     return ScenarioBatch(state=state, hpolys=hpolys, times=times, seg=segs)
+
+
+def fill_faces(sc: ScenarioBatch, seed: int = 0,
+               offset: float = 100.0) -> ScenarioBatch:
+    """The same batch with every face slot of every active segment in use:
+    the empty slots get random unit normals with offsets `offset` beyond the
+    segment's start point, so the added faces are far from the corridor
+    and never bind.  A batch with no padded face slot."""
+    rng = np.random.default_rng(seed)
+    hp = sc.hpolys.copy()
+    B, S, F, _ = hp.shape
+    for b in range(B):
+        for i in range(int(sc.seg[b])):
+            empty = np.linalg.norm(hp[b, i, :, :3], axis=-1) == 0
+            k = int(empty.sum())
+            if k:
+                center = sc.state[b, 0, :, 0]
+                hp[b, i, empty] = _slant_faces(center, offset, k, rng)
+    return sc._replace(hpolys=hp)

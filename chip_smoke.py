@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (allocnet_tpu_torch) on one NVIDIA
-card: builds the admm_chunk kernel from csrc/, holds it against its plain
-PyTorch version at the deploy shape, solves the deploy QP batch through it
-(bench.py's accuracy gates), serves plan_batch requests with the shipped
-seq5 ConvLSTM weights, and prints one JSON line per kernel and a final
-status line.
+card: builds the admm_chunk kernel from csrc/ (no register spills), holds
+it against its plain PyTorch version at the deploy shape and on batches
+that take each of its routes (padded parts skipped or not, Kx in shared or
+device memory), solves the deploy QP batch through it (bench.py's accuracy
+gates), serves plan_batch requests with the shipped seq5 ConvLSTM weights,
+and prints one JSON line per kernel and a final status line.
 
     python3 chip_smoke.py
 
@@ -16,6 +17,7 @@ allocnet_tpu_torch/_build/.  Imports neither JAX nor the JAX package.
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -121,8 +123,12 @@ def main():
     for line in info["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print("  ptxas:", line.strip())
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", info["ptxas"])
+    if not spills or any(int(v) for v in spills):
+        fail(f"ptxas reports register spills: {spills}")
     print(f"  dynamic shared memory per block: "
-          f"{admm_chunk.smem_bytes(QPConfig())} bytes")
+          f"{admm_chunk.smem_bytes(QPConfig())} bytes; blocks (scenarios) "
+          f"per SM: {admm_chunk.blocks_per_sm(QPConfig())}")
     phase("build", t0)
 
     # ---- 2. the kernel against its plain version, one deploy chunk -------
@@ -132,18 +138,9 @@ def main():
     f32 = np.float32
     data = qp.build_qp(cfg, sc.state.astype(f32), sc.hpolys.astype(f32),
                        sc.times.astype(f32), sc.seg, device=dev)
-    x, z, y = admm.warm_start(data)
-    rho_i, _ = admm.initial_rho(data, scfg, torch.float32)
-    rho_e = rho_i * scfg.rho_eq_scale
-    M = qp.normal_matrix(data, scfg.sigma, rho_e, rho_i)
-    kx = admm_chunk.fused_refined_inverse(M, admm.spd_inverse(M))
-    aeq, beq, nrm, h, sm, basis = admm_chunk.pack_scenario(data)
-    args = (x.reshape(B, -1).contiguous(),
-            admm_chunk.ineq_pack({k: z[k] for k in qp.INEQ_KEYS}),
-            admm_chunk.ineq_pack({k: y[k] for k in qp.INEQ_KEYS}),
-            qp.tree_flat({k: y[k] for k in qp.EQ_KEYS}, qp.EQ_KEYS).contiguous(),
-            kx, aeq, beq, nrm, h, sm, rho_i.contiguous(), rho_e.contiguous(),
-            basis)
+    args = admm_chunk.chunk_inputs(data, scfg)
+    aeq = admm_chunk.aeq_dense(args[5], args[6], cfg.n_var)
+    nrm, sm = args[8], args[10]
     it = scfg.iters_per_chunk
     got = admm_chunk.admm_chunk(*args, it, scfg.sigma, scfg.alpha)
     torch.cuda.synchronize()
@@ -170,7 +167,40 @@ def main():
           f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
           f"({flops:.3e} FLOP -> {t_ops:.4f} ms, {nbytes:.3e} B -> "
           f"{t_bytes:.4f} ms)")
+    Ls, face_live = admm_chunk.live_parts(*args)
+    segs = torch.as_tensor(sc.seg, device=dev)
+    print(f"  routes: {int((Ls == segs).sum())} of {B} scenarios skip their "
+          f"padded segments; live segments {float(Ls.float().mean()):.3f}, "
+          f"live faces per live segment "
+          f"{float(face_live.sum() / Ls.sum()):.3f} (of {cfg.max_faces})")
     phase("kernel vs plain", t0)
+
+    # ---- 2b. the kernel against its plain version on each route ----------
+    t0 = time.perf_counter()
+    for batch in admm_chunk.CHECK_BATCHES:
+        rargs = admm_chunk.check_batch(batch, cfg, scfg, B, SEED, dev)
+        got = admm_chunk.admm_chunk(*rargs, it, scfg.sigma, scfg.alpha)
+        torch.cuda.synchronize()
+        want = admm_chunk.admm_chunk_reference(*rargs, it, scfg.sigma,
+                                               scfg.alpha)
+        errs = []
+        for name, g, w in zip(("x", "z", "yh", "yeh"), got, want):
+            if not bool(torch.isfinite(g).all()):
+                fail(f"kernel {name} not finite on {batch}")
+            scale = max(1.0, float(w.abs().max()))
+            errs.append(float((g - w).abs().max()) / scale)
+            if errs[-1] > CHUNK_TOL:
+                fail(f"admm_chunk {name} disagrees with its plain version on "
+                     f"{batch}: {errs[-1]:.3e} of the largest entry")
+        Ls, face_live = admm_chunk.live_parts(*rargs)
+        ms = cuda_ms(lambda: admm_chunk.admm_chunk(*rargs, it, scfg.sigma,
+                                                   scfg.alpha), reps=3)
+        print(f"  {batch}: kernel {ms:.3f} ms; max diff / max|plain| of x z "
+              f"yh yeh " + " ".join(f"{e:.3e}" for e in errs)
+              + f" (tolerance {CHUNK_TOL:.0e}); live segments "
+              f"{float(Ls.float().mean()):.3f}, live faces per live segment "
+              f"{float(face_live.sum() / Ls.sum()):.3f}")
+    phase("routes", t0)
 
     # ---- 3. the deploy-point solve through the kernel ---------------------
     t0 = time.perf_counter()

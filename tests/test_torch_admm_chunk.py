@@ -65,7 +65,7 @@ def _run_both(res, B, seed, n_iters):
     n = cfg.n_var
     M_t = torch.tensor(np.asarray(M))
     Minv_t = torch.tensor(np.asarray(Minv))
-    aeq_t, beq_t, nrm_t, h_t, sm_t, bas_t = admm_chunk.pack_scenario(data)
+    aval_t, ablk_t, beq_t, nrm_t, h_t, sm_t, bas_t = admm_chunk.pack_scenario(data)
     T = lambda a: torch.tensor(np.asarray(a))
     args = (torch.tensor(x).reshape(B, n),
             admm_chunk.ineq_pack({k: T(z[k]) for k in qp.INEQ_KEYS}),
@@ -73,8 +73,8 @@ def _run_both(res, B, seed, n_iters):
             / T(rho_i)[:, None, None],
             qp.tree_flat({k: T(y[k]) for k in qp.EQ_KEYS}, qp.EQ_KEYS)
             / T(rho_e)[:, None],
-            admm_chunk.fused_refined_inverse(M_t, Minv_t), aeq_t, beq_t,
-            nrm_t, h_t, sm_t, T(rho_i), T(rho_e), bas_t)
+            admm_chunk.fused_refined_inverse(M_t, Minv_t), aval_t, ablk_t,
+            beq_t, nrm_t, h_t, sm_t, T(rho_i), T(rho_e), bas_t)
     before = admm_chunk.admm_chunk.launches
     px, pz, pyh, pyeh = admm_chunk.admm_chunk(*args, n_iters, SIGMA, ALPHA)
     assert admm_chunk.admm_chunk.launches == before   # CPU: no kernel launch
@@ -99,6 +99,101 @@ def test_chunk_reference_matches_tpu_kernel(res, B, seed, n_iters):
         assert float(np.abs(g - w).max()) <= 1e-4 * scale, k
 
 
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5])
+def test_structured_aeq_expands_to_dense_eq_bit_for_bit(L):
+    """pack_aeq keeps every nonzero of qp.dense_eq's rows (at most two
+    (segment, axis) blocks each) and aeq_dense puts them back, bit for bit,
+    for every segment count and in f32 and f64 assembly."""
+    cfg = QPConfig(res=4)
+    for seed in (0, 1, 2):
+        sc = scenarios.random_scenarios(cfg, 6, seed=seed, min_seg=L,
+                                        max_seg=L)
+        for dt in (np.float32, np.float64):
+            data = qp.build_qp(cfg, sc.state.astype(dt), sc.hpolys.astype(dt),
+                               sc.times.astype(dt), sc.seg, device="cpu")
+            aeq, _ = qp.dense_eq(data)
+            aeq = aeq.to(torch.float32)
+            val, blk = admm_chunk.pack_aeq(aeq, cfg.max_seg)
+            assert val.shape == (6, cfg.n_eq, 2, cfg.D)
+            assert blk.dtype == torch.int32
+            assert bool((blk[..., 0] != blk[..., 1]).all())
+            back = admm_chunk.aeq_dense(val, blk, cfg.n_var)
+            assert torch.equal(back, aeq)
+            # and the structured rows are the same equality operator
+            x = torch.randn((6, cfg.n_var), dtype=torch.float32)
+            ref = qp.tree_flat(qp.apply_A(data, x.to(data.times.dtype).view(
+                6, cfg.max_seg, 3, cfg.D)), qp.EQ_KEYS)
+            np.testing.assert_allclose(
+                torch.einsum('bmn,bn->bm', back, x).numpy(),
+                ref.to(torch.float32).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _chunk_case(res, B, seed, warm):
+    cfg, scfg = QPConfig(res=res), SolverConfig()
+    sc = scenarios.random_scenarios(cfg, B, seed=seed, min_seg=1)
+    f32 = np.float32
+    data = qp.build_qp(cfg, sc.state.astype(f32), sc.hpolys.astype(f32),
+                       sc.times.astype(f32), sc.seg, device="cpu")
+    x0y0 = admm_chunk.padded_noise(data, seed) if warm else ()
+    return cfg, scfg, sc, data, admm_chunk.chunk_inputs(data, scfg, *x0y0)
+
+
+def _skipped_parts_unchanged(cfg, args, out, Ls, face_live):
+    """Every part live_parts skips is, after the dense chunk, exactly what
+    it was on input."""
+    B, S, R, F = args[0].shape[0], cfg.max_seg, cfg.res, cfg.max_faces
+    seg_dead = torch.arange(S)[None, :] >= Ls[:, None]
+    x_in, x_out = args[0].view(B, S, -1), out[0].view(B, S, -1)
+    assert torch.equal(x_out[seg_dead], x_in[seg_dead])
+    for t_in, t_out in ((args[1], out[1]), (args[2], out[2])):
+        t_in, t_out = t_in.view(B, S, R, -1), t_out.view(B, S, R, -1)
+        assert torch.equal(t_out[seg_dead], t_in[seg_dead])
+        dead = (~face_live)[:, :, None, :].expand(B, S, R, F)
+        assert torch.equal(t_out[..., :F][dead], t_in[..., :F][dead])
+
+
+def test_kernel_skip_rule_is_exact_on_a_cold_start():
+    """On the main path's inputs (zero warm start) the kernel's load-time
+    rule skips the padded segments and face slots, and the dense iteration
+    leaves exactly those parts at zero."""
+    cfg, scfg, sc, data, args = _chunk_case(10, 12, 3, warm=False)
+    Ls, face_live = admm_chunk.live_parts(*args)
+    np.testing.assert_array_equal(Ls.numpy(), sc.seg)
+    assert torch.equal(face_live, data.face_mask > 0)
+    out = admm_chunk.admm_chunk(*args, 20, scfg.sigma, scfg.alpha)
+    _skipped_parts_unchanged(cfg, args, out, Ls, face_live)
+
+
+def test_kernel_skip_rule_fails_on_a_nonzero_padded_warm_start():
+    """A warm start with nonzero padded state: the rule keeps every segment
+    and face slot of those scenarios live (the kernel does the dense work
+    there), and the dense iteration does move their padded parts, so
+    skipping them would be wrong.  The clean scenarios of the same batch
+    still skip."""
+    cfg, scfg, sc, data, args = _chunk_case(10, 12, 3, warm=True)
+    Ls, face_live = admm_chunk.live_parts(*args)
+    noisy = np.arange(12) % 2 == 0
+    np.testing.assert_array_equal(Ls.numpy()[noisy], cfg.max_seg)
+    assert bool(face_live[torch.as_tensor(noisy)].all())
+    np.testing.assert_array_equal(Ls.numpy()[~noisy], sc.seg[~noisy])
+    out = admm_chunk.admm_chunk(*args, 20, scfg.sigma, scfg.alpha)
+    _skipped_parts_unchanged(cfg, args, out, Ls, face_live)
+    B, S = 12, cfg.max_seg
+    padded = torch.arange(S)[None, :] >= torch.as_tensor(sc.seg)[:, None]
+    moved = (out[0] - args[0]).view(B, S, -1).abs().amax(-1)
+    assert bool((moved[padded & torch.as_tensor(noisy)[:, None]] > 0).all())
+
+
+def test_kernel_skip_rule_keeps_everything_live_on_nonfinite_input():
+    cfg, scfg, sc, data, args = _chunk_case(4, 3, 1, warm=False)
+    args = list(args)
+    args[4] = args[4].clone()
+    args[4][1, 0, 0] = float("nan")
+    Ls, face_live = admm_chunk.live_parts(*args)
+    assert int(Ls[1]) == cfg.max_seg and bool(face_live[1].all())
+    np.testing.assert_array_equal(Ls.numpy()[[0, 2]], sc.seg[[0, 2]])
+
+
 def test_layout_packing_roundtrip():
     cfg, _, data, _, x, z, y, _ = _inputs(10, 3, 2)
     tree = {k: torch.tensor(np.asarray(z[k])) for k in qp.INEQ_KEYS}
@@ -110,7 +205,7 @@ def test_layout_packing_roundtrip():
     for k in qp.EQ_KEYS:
         np.testing.assert_array_equal(back[k].numpy(), eq[k].numpy())
     # h: corridor offsets then the 12 box bounds, the same for every sample
-    _, _, _, h, _, _ = admm_chunk.pack_scenario(data)
+    _, _, _, _, h, _, _ = admm_chunk.pack_scenario(data)
     hf = qp.ineq_rhs(data)
     np.testing.assert_array_equal(
         admm_chunk.ineq_pack(hf).reshape(3, cfg.max_seg, cfg.res, -1).numpy(),
@@ -123,8 +218,9 @@ def _valid_args(B=2, res=4):
     C = F + 12
     z = lambda *s: torch.zeros(s, dtype=torch.float32)
     return [z(B, n), z(B, S * R, C), z(B, S * R, C), z(B, m), z(B, n, n),
-            z(B, m, n), z(B, m), z(B, S, F, 3), torch.ones(B, S, C), z(B, S),
-            torch.ones(B), torch.ones(B), z(3, R, D)]
+            z(B, m, 2, D), torch.zeros((B, m, 2), dtype=torch.int32), z(B, m),
+            z(B, S, F, 3), torch.ones(B, S, C), z(B, S), torch.ones(B),
+            torch.ones(B), z(3, R, D)]
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "contig", "device"])
@@ -137,7 +233,7 @@ def test_wrapper_rejects_bad_input(case):
     elif case == "contig":
         args[4] = args[4].transpose(1, 2)
     else:
-        args[9] = args[9].to("meta")
+        args[10] = args[10].to("meta")
     with pytest.raises((TypeError, ValueError)):
         admm_chunk.admm_chunk(*args, 3, SIGMA, ALPHA)
 

@@ -7,6 +7,7 @@ device.  Run on the card with
 This file imports no JAX, so it runs where only PyTorch is installed."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -40,23 +41,11 @@ def _data(cfg, B, seed, dev):
 
 
 def _chunk_args(data, scfg, seed):
-    """A random primal/dual state (seeded) at the problem's initial rho."""
-    B = data.times.shape[0]
-    x, z, _ = admm.warm_start(data)
+    """A random dual state (seeded) at the problem's initial rho."""
+    _, z, _ = admm.warm_start(data)
     g = torch.Generator().manual_seed(seed)
     y = {k: torch.randn(v.shape, generator=g).to(v.device) for k, v in z.items()}
-    rho_i, _ = admm.initial_rho(data, scfg, torch.float32)
-    rho_e = rho_i * scfg.rho_eq_scale
-    M = qp.normal_matrix(data, scfg.sigma, rho_e, rho_i)
-    kx = admm_chunk.fused_refined_inverse(M, admm.spd_inverse(M))
-    aeq, beq, nrm, h, sm, basis = admm_chunk.pack_scenario(data)
-    return (x.reshape(B, -1).contiguous(),
-            admm_chunk.ineq_pack({k: z[k] for k in qp.INEQ_KEYS}),
-            admm_chunk.ineq_pack({k: y[k] for k in qp.INEQ_KEYS}) / rho_i[:, None, None],
-            (qp.tree_flat({k: y[k] for k in qp.EQ_KEYS}, qp.EQ_KEYS)
-             / rho_e[:, None]).contiguous(),
-            kx, aeq, beq, nrm, h, sm, rho_i.contiguous(), rho_e.contiguous(),
-            basis)
+    return admm_chunk.chunk_inputs(data, scfg, None, y)
 
 
 @pytest.mark.gpu
@@ -79,6 +68,54 @@ def test_kernel_matches_plain(cuda, res, B, n_iters):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", admm_chunk.CHECK_BATCHES)
+def test_kernel_matches_plain_on_each_route(cuda, kind):
+    """Deploy shape, B=1024 x 150 iterations, on batches that take each of
+    the kernel's routes: padded segments and faces skipped (1 segment),
+    nothing to skip but faces (5 segments), nothing skipped and Kx read
+    from device memory (full faces), skip checks failing on every other
+    scenario (nonzero padded warm start)."""
+    cfg, scfg = QPConfig(), SolverConfig()
+    args = admm_chunk.check_batch(kind, cfg, scfg, 1024, 11, cuda)
+    got = admm_chunk.admm_chunk(*args, scfg.iters_per_chunk, scfg.sigma,
+                                scfg.alpha)
+    torch.cuda.synchronize()
+    want = admm_chunk.admm_chunk_reference(*args, scfg.iters_per_chunk,
+                                           scfg.sigma, scfg.alpha)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= TOL * scale
+
+
+@pytest.mark.gpu
+def test_kernel_build_has_no_spills_and_two_blocks_per_sm(cuda):
+    report = admm_chunk.build()["ptxas"]
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", report)
+    assert spills and all(int(v) == 0 for v in spills), report
+    assert admm_chunk.blocks_per_sm(QPConfig()) >= 2
+
+
+@pytest.mark.gpu
+def test_kernel_bad_block_index_gives_nan(cuda):
+    """An Aeq block index out of range: the plain version raises, the
+    kernel writes NaN to that scenario and computes the others."""
+    scfg = SolverConfig()
+    _, data = _data(QPConfig(res=10), 4, 3, cuda)
+    args = list(_chunk_args(data, scfg, 3))
+    args[6] = args[6].clone()
+    args[6][1, 5, 1] = 99
+    got = admm_chunk.admm_chunk(*args, 5, scfg.sigma, scfg.alpha)
+    torch.cuda.synchronize()
+    for g in got:
+        assert bool(torch.isnan(g[1]).all())
+        assert bool(torch.isfinite(g[[0, 2, 3]]).all())
+    with pytest.raises(RuntimeError):       # on the CPU: a scatter index error
+        admm_chunk.admm_chunk_reference(*(a.cpu() for a in args), 5,
+                                        scfg.sigma, scfg.alpha)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_mixed_devices(cuda):
     _, data = _data(QPConfig(res=4), 2, 0, cuda)
     args = list(_chunk_args(data, SolverConfig(), 0))
@@ -89,8 +126,8 @@ def test_kernel_rejects_mixed_devices(cuda):
 
 @pytest.mark.gpu
 def test_kernel_smem_needs_opt_in(cuda):
-    # the deploy shape needs ~155 KB: above the 48 KB default, so the
-    # launch must opt in to more dynamic shared memory
+    # the deploy shape asks for ~113 KB (two blocks per SM): above the 48 KB
+    # default, so the launch must opt in to more dynamic shared memory
     assert 48 * 1024 < admm_chunk.smem_bytes(QPConfig()) <= 227 * 1024
 
 

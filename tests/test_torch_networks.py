@@ -77,25 +77,37 @@ def test_network_matches_jax(path, seq, thresh):
     jparams = import_torch.load_params_msgpack(full)
     if "params" in jparams and "w_ih" not in jparams["params"]:
         jparams = jparams["params"]            # training checkpoint
-    jparams = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), jparams)
     jnet = JConvLSTMAllocNet(seq_len=seq, hidden_size=256, token_thresh=thresh)
     net = ConvLSTMAllocNet(seq, 256, thresh)
     net.load_state_dict(weights.load_params(full))
 
     sc = scenarios.random_scenarios(QPConfig(max_seg=seq), 16, seed=4,
                                     min_seg=1)
-    st = sc.state.astype(np.float32)
-    hp = sc.hpolys.astype(np.float32)
-    jt, jk = jnet.apply(jparams, jnp.asarray(st).reshape(16, 2, 9).transpose(0, 2, 1),
-                        jnp.transpose(jnp.asarray(hp), (0, 2, 3, 1)))
-    with torch.no_grad():
-        t, k = net(packing.pack_state(torch.tensor(st)),
-                   packing.pack_hpolys(torch.tensor(hp)))
-    # f32 on both sides, the same layer math: rtol 1e-5 (+1e-6 absolute for
-    # the masked zeros and near-zero outputs)
-    np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(k.numpy(), np.asarray(jk), rtol=1e-5, atol=1e-6)
-    assert t.shape == (16, seq)
+    outs = {}
+    for name, jdt, tdt in (("f64", jnp.float64, torch.float64),
+                           ("f32", jnp.float32, torch.float32)):
+        st = sc.state.astype(jdt)
+        hp = sc.hpolys.astype(jdt)
+        jp = jax.tree.map(lambda a: jnp.asarray(a, jdt), jparams)
+        jt, jk = jnet.apply(jp, jnp.asarray(st).reshape(16, 2, 9).transpose(0, 2, 1),
+                            jnp.transpose(jnp.asarray(hp), (0, 2, 3, 1)))
+        with torch.no_grad():
+            t, k = net.to(tdt)(packing.pack_state(torch.tensor(st)),
+                               packing.pack_hpolys(torch.tensor(hp)))
+        assert t.dtype == tdt and np.asarray(jt).dtype == jdt
+        outs[name] = (t.numpy(), k.numpy(), np.asarray(jt), np.asarray(jk))
+    t64, k64, jt64, jk64 = outs["f64"]
+    # f64 on both sides, the same layer math: agreement to rounding (the
+    # masked zeros are exact zeros on both)
+    np.testing.assert_allclose(t64, jt64, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(k64, jk64, rtol=1e-12, atol=0)
+    # f32 on each side against the f64 result: f32 sums over the 256-wide
+    # LSTM gates, reordered by thread count and library across 5-10 steps,
+    # reach ~2e-5 relative; rtol 1e-4 (+1e-6 absolute for near-zero outputs)
+    for t32, k32 in (outs["f32"][:2], outs["f32"][2:]):
+        np.testing.assert_allclose(t32, t64, rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(k32, k64, rtol=1e-4, atol=1e-6)
+    assert t64.shape == (16, seq)
 
 
 def test_packing_roundtrip():
