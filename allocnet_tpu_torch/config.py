@@ -1,5 +1,6 @@
-"""Typed configuration of the port: the QP shape, the solver budget and the
-time-allocation network.
+"""Typed configuration of the port: the QP shape, the solver budget, the
+time-allocation network, the losses and training, and the operating points
+built from them.
 
 Same fields and defaults as `allocnet_tpu/config.py`, so a configuration
 carries over 1:1; the comments there give the reasons for each default.
@@ -98,6 +99,70 @@ class ModelConfig:
     head: str = "lstm"
     use_time_factor: bool = False
 
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss weights (reference: minsnap_conv_lstm_params.yaml:40-44)."""
+
+    w1: float = 17.5     # mean time-factor loss
+    wt: float = 1200.0   # supervised time MSE fallback (unsolved QPs)
+    wc: float = 0.1      # normalized QP cost
+    wp: float = 20.0     # stop-token / padding loss
+    end_penalty: float = 5.0
+
+
+# Ablation operating point: supervised-time-only training, the QP gradient
+# path switched off (reference train_minsnap_conv_mlp_as.py:135-139)
+ABLATION_SUPERVISED = LossConfig(w1=0.0, wt=1.0, wc=0.0, wp=0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-3
+    batch_size: int = 32
+    t0: int = 500            # cosine warm restarts period
+    t_mult: int = 2
+    eta_min: float = 1e-5
+    max_epochs: int = 50
+    training_data_ratio: float = 0.9
+    save_freq: int = 1
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PhysParams:
+    """Quadrotor physical parameters for the flatness map (planner.yaml:
+    1-12)."""
+
+    vehicle_mass: float = 0.61
+    grav_acc: float = 9.81
+    horiz_drag: float = 0.70
+    vert_drag: float = 0.80
+    parasitic_drag: float = 0.01
+    speed_smooth: float = 0.001
+
+
+@dataclasses.dataclass(frozen=True)
+class AllocNetConfig:
+    """The JAX package's AllocNetConfig without its `corridor` field: the
+    corridor front end is not ported yet."""
+
+    qp: QPConfig = dataclasses.field(default_factory=QPConfig)
+    solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    phys: PhysParams = dataclasses.field(default_factory=PhysParams)
+
+
+# Training operating point (network configs): res 10, v <= 5, a <= 7.
+TRAIN = AllocNetConfig(qp=QPConfig(order=4, res=10, max_vel=5.0, max_acc=7.0))
+
+# Phase-1 training: the phase-1 box limits (params.yaml
+# phase1_physical_limits) and times predicted as a factor over the
+# per-segment lower bound, T_i = tlb_i * (1 + factor_i).
+PHASE1 = AllocNetConfig(qp=QPConfig(order=4, res=10, max_vel=5.0, max_acc=8.0),
+                        model=ModelConfig(use_time_factor=True))
 
 # Offline certification budget: more ADMM iterations and active-set rounds
 # for the degenerate corridors that stall at deploy settings.

@@ -1,10 +1,13 @@
-"""Time-allocation network: the ConvLSTM with stop tokens, as nn.Modules.
+"""Time-allocation networks as nn.Modules: the ConvLSTM with stop tokens
+and the ConvMLP.
 
-Port of `allocnet_tpu/models/networks.py::ConvLSTMAllocNet`, which is the
+Port of `allocnet_tpu/models/networks.py`: ConvLSTMAllocNet is the
 reference's ConvLSTMMinimalSnapNetwork (minsnap_network_conv_lstm.py:
-25-111).  Parameter names are the reference's torch state_dict names
-(`allocnet_tpu/models/import_torch.py:15-32`), so its checkpoints and the
-JAX package's parameters load by name (models/weights.py).
+25-111), ConvMLPAllocNet its ConvMinimalSnapNetwork (minsnap_network_conv.py:
+24-101).  The ConvLSTM's parameter names are the reference's torch
+state_dict names (`allocnet_tpu/models/import_torch.py:15-32`); the ConvMLP
+uses the same module names for its encoders and an `output_module` for its
+head.  The JAX package's parameters load by name (models/weights.py).
 """
 
 from __future__ import annotations
@@ -87,3 +90,41 @@ class ConvLSTMAllocNet(nn.Module):
         fired = (stops > thresh).to(torch.int32)
         keep = ((fired.cumsum(1) - fired) == 0).to(tfs.dtype)
         return tfs * keep, stops * keep + (1.0 - keep)
+
+
+class ConvMLPAllocNet(nn.Module):
+    """MLP-head time allocation: the two encoders, then Linear-LayerNorm-
+    ReLU-Dropout twice, Linear(hidden -> seg) and Softplus(beta=2).
+
+    forward(stacked_state, stacked_hpolys) returns times (B, seg).  As in
+    the JAX package, dropout runs only when the caller passes
+    deterministic=False; `train()` mode alone does not turn it on (the
+    JAX training step never passes it, so the MLP trains without dropout).
+    The last bias starts at 1.0, as in the JAX init: softplus(beta=2) has
+    a dead zone below about -2 that a zero bias lets early steps reach."""
+
+    def __init__(self, seg: int = 5, seq_len: int = 5, hidden_size: int = 128,
+                 dropout: float = 0.2):
+        super().__init__()
+        self.seg = seg
+        self.hpoly_input_module = HpolyEncoder(seq_len)
+        self.state_input_module = StateEncoder()
+        h = hidden_size
+        self.output_module = nn.Sequential(
+            nn.Linear(38, h), nn.LayerNorm(h), nn.ReLU(), nn.Dropout(dropout),
+            nn.Linear(h, h), nn.LayerNorm(h), nn.ReLU(), nn.Dropout(dropout),
+            nn.Linear(h, seg))
+        nn.init.ones_(self.output_module[8].bias)
+
+    def forward(self, state, hpolys, deterministic: bool = True):
+        x = torch.cat([self.state_input_module(state),
+                       self.hpoly_input_module(hpolys)], dim=-1)
+        for layer in self.output_module:
+            if isinstance(layer, nn.Dropout):
+                if not deterministic:
+                    x = nn.functional.dropout(x, layer.p, training=True)
+            else:
+                x = layer(x)
+        # Softplus(beta=2) as log(1 + exp(2x)) / 2 without torch's
+        # linear cut-off above 2x = 20, as jax.nn.softplus
+        return torch.logaddexp(2.0 * x, torch.zeros_like(x)) / 2.0

@@ -2,8 +2,8 @@
 
 `read_msgpack` decodes a flax msgpack file (`data/params/*.msgpack`,
 `runs/*/checkpoints/*.msgpack`) into nested dicts of numpy arrays without
-the `msgpack` package; `from_jax_params` renames such a tree to the
-reference torch state_dict names that models/networks.py uses.
+the `msgpack` package; `from_jax_params` renames such a tree (ConvLSTM or
+ConvMLP) to the state_dict names that models/networks.py uses.
 """
 
 from __future__ import annotations
@@ -32,6 +32,24 @@ JAX_TO_TORCH = {
     ('state_enc', 'conv_b'): 'state_input_module.0.bias',
     ('state_enc', 'lin_w'): 'state_input_module.4.weight',
     ('state_enc', 'lin_b'): 'state_input_module.4.bias',
+}
+
+# JAX ConvMLPAllocNet parameter path -> models/networks.ConvMLPAllocNet key
+# (the encoders as above; the head's Linear / LayerNorm layers are entries
+# 0, 1, 4, 5 and 8 of `output_module`)
+MLP_JAX_TO_TORCH = {
+    **{p: k for p, k in JAX_TO_TORCH.items() if p[0] in ('hpoly_enc',
+                                                         'state_enc')},
+    ('l1_w',): 'output_module.0.weight',
+    ('l1_b',): 'output_module.0.bias',
+    ('ln1_s',): 'output_module.1.weight',
+    ('ln1_b',): 'output_module.1.bias',
+    ('l2_w',): 'output_module.4.weight',
+    ('l2_b',): 'output_module.4.bias',
+    ('ln2_s',): 'output_module.5.weight',
+    ('ln2_b',): 'output_module.5.bias',
+    ('l3_w',): 'output_module.8.weight',
+    ('l3_b',): 'output_module.8.bias',
 }
 
 # flax's msgpack extension code for a numpy array: (shape, dtype name, bytes)
@@ -126,19 +144,22 @@ def read_msgpack(path: str):
 
 
 def from_jax_params(tree: dict) -> dict:
-    """JAX ConvLSTMAllocNet parameters (numpy leaves; a plain params tree or
-    one nested under 'params' keys, as in a training checkpoint) -> a torch
-    state_dict for models/networks.ConvLSTMAllocNet."""
-    while 'w_ih' not in tree:
+    """JAX ConvLSTMAllocNet or ConvMLPAllocNet parameters (numpy leaves; a
+    plain params tree or one nested under 'params' keys, as in a training
+    checkpoint) -> a float32 torch state_dict for the matching network of
+    models/networks.py."""
+    while 'w_ih' not in tree and 'l1_w' not in tree:
         if 'params' not in tree:
-            raise KeyError("no ConvLSTMAllocNet parameters in this tree")
+            raise KeyError("no ConvLSTMAllocNet or ConvMLPAllocNet "
+                           "parameters in this tree")
         tree = tree['params']
+    names = JAX_TO_TORCH if 'w_ih' in tree else MLP_JAX_TO_TORCH
     sd = {}
-    for path, key in JAX_TO_TORCH.items():
+    for path, key in names.items():
         leaf = tree
         for p in path:
             leaf = leaf[p]
-        sd[key] = torch.as_tensor(np.asarray(leaf, dtype=np.float32))
+        sd[key] = torch.from_numpy(np.array(leaf, dtype=np.float32))
     return sd
 
 

@@ -72,6 +72,14 @@ def masks_from_inputs(cfg: QPConfig, hpolys: torch.Tensor, seg: torch.Tensor):
     return seg_mask, face_mask, end_onehot, junc_mask
 
 
+def infer_seg(hpolys: torch.Tensor) -> torch.Tensor:
+    """Active segment count (B,) from zero padding: the leading polytopes
+    whose total norm exceeds 1 (the reference's rule, min_traj_opt.py:
+    75-92: the corridor ends at the first polytope with norm <= 1)."""
+    alive = torch.linalg.vector_norm(hpolys, dim=(2, 3)) > 1.0
+    return torch.cumprod(alive.to(torch.int32), dim=1).sum(1)
+
+
 def build_qp(cfg: QPConfig, state, hpolys, times, seg, device=None) -> QPData:
     """Assemble the scaled QP for a batch.
 
@@ -399,3 +407,15 @@ def unscale_coeffs(data: QPData, x: torch.Tensor) -> torch.Tensor:
                         device=dev)
     scale = s * data.times[:, :, None] ** pw
     return x / scale[:, :, None, :] * data.seg_mask[:, :, None, None]
+
+
+def scale_coeffs(data: QPData, c: torch.Tensor) -> torch.Tensor:
+    """Physical coefficients (B, S, 3, D) -> scaled variables, the inverse
+    of `unscale_coeffs` on active segments."""
+    cfg = data.cfg
+    dev = data.times.device
+    pw = torch.as_tensor(bases.unscale_powers(cfg.D), dtype=c.dtype, device=dev)
+    s = torch.as_tensor(bases.slot_scales(cfg.D, cfg.order), dtype=c.dtype,
+                        device=dev)
+    scale = s * data.times[:, :, None] ** pw
+    return c * scale[:, :, None, :]

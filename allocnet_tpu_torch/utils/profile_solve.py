@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of the port's deploy-point solve goes, on one NVIDIA card.
+"""Where the time of the port's deploy-point solve and of its training step
+goes, on one NVIDIA card.
 
 Runs `allocnet_tpu_torch.ops.admm.solve_qp` on the deploy batch (B=1024,
 `QPConfig()`, `SolverConfig()`, bench.py's seed 123) under
@@ -12,7 +13,10 @@ profile build of the admm_chunk kernel and prints its per-phase SM cycles
 once per launch), as thread 0 of each block reads clock64() at the
 barriers, and the busy cycles of the phase's slowest warp and of the mean
 warp (16 per block); once for the whole batch and once for 132 scenarios,
-one block per SM.
+one block per SM.  Last, it profiles training steps the same way (the
+shipped seq5 ConvLSTM at the TRAIN operating point, B=32: the net, the
+differentiable solve, the implicit backward and Adam) and prints the
+same device-time table per step.
 
     python3 -m allocnet_tpu_torch.utils.profile_solve [--reps 3] [--top 25]
 
@@ -34,7 +38,6 @@ def main():
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA device", file=sys.stderr)
@@ -57,10 +60,25 @@ def main():
         admm.solve_qp(data, scfg)
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    profile_device(lambda: admm.solve_qp(data, scfg), args.reps, args.top,
+                   "solve", "solves of B=1024")
+    print_phase_cycles(data, scfg, admm_chunk)
+    profile_train(dev, args.reps, args.top)
+    return 0
+
+
+def profile_device(fn, reps, top, unit, what):
+    """Run fn `reps` times under torch.profiler and print the wall time,
+    device busy time, idle share and launches per call, and the device
+    time by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.reps):
-            admm.solve_qp(data, scfg)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -71,16 +89,51 @@ def main():
             by_name[ev.name] += ev.time_range.elapsed_us()
             count[ev.name] += 1
     busy = sum(by_name.values())
-    print(f"{args.reps} solves of B=1024: wall {wall_us / 1e3 / args.reps:.2f} ms "
-          f"per solve, device busy {busy / 1e3 / args.reps:.2f} ms per solve, "
+    print(f"{reps} {what}: wall {wall_us / 1e3 / reps:.2f} ms per {unit}, "
+          f"device busy {busy / 1e3 / reps:.2f} ms per {unit}, "
           f"idle share {1 - busy / wall_us:.3f}, "
-          f"{sum(count.values()) // args.reps} kernel launches per solve")
-    print(f"{'device ms/solve':>16} {'share':>6} {'launches':>9}  kernel")
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]:
-        print(f"{t / 1e3 / args.reps:16.3f} {t / busy:6.3f} "
-              f"{count[name] // args.reps:9d}  {name[:100]}")
-    print_phase_cycles(data, scfg, admm_chunk)
-    return 0
+          f"{sum(count.values()) // reps} kernel launches per {unit}")
+    print(f"{'device ms/' + unit:>16} {'share':>6} {'launches':>9}  kernel")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"{t / 1e3 / reps:16.3f} {t / busy:6.3f} "
+              f"{count[name] // reps:9d}  {name[:100]}")
+
+
+def profile_train(dev, reps, top):
+    """Training steps of the shipped seq5 net at TRAIN, B=32."""
+    import os
+
+    import torch
+    from allocnet_tpu_torch import config
+    from allocnet_tpu_torch.models import weights
+    from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
+    from allocnet_tpu_torch.train import train_step
+    from allocnet_tpu_torch.utils import scenarios
+
+    cfg = config.TRAIN
+    net = ConvLSTMAllocNet(5, 256, token_thresh=0.5)
+    net.load_state_dict(weights.load_params(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), "data", "params",
+        "seq5_tokenthresh0_35.msgpack")))
+    net = net.to(dev)
+    opt, lr_sched = train_step.make_optimizer(net, cfg.train)
+    sc = scenarios.random_scenarios(cfg.qp, cfg.train.batch_size, seed=123,
+                                    min_seg=1)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    batch = (t(sc.state), t(sc.hpolys),
+             torch.as_tensor(sc.seg, device=dev).long(), t(sc.times))
+
+    def step():
+        train_step.train_step(net, opt, lr_sched, cfg.qp, cfg.solver,
+                              cfg.loss, *batch,
+                              token_thresh=cfg.model.token_thresh)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    profile_device(step, reps, top, "step",
+                   f"training steps of B={cfg.train.batch_size} at TRAIN")
 
 
 def print_phase_cycles(data, scfg, admm_chunk):

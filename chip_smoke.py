@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (allocnet_tpu_torch) on one NVIDIA
 card: builds the admm_chunk kernel from csrc/ (no register spills), holds
-it against its plain PyTorch version at the deploy shape and on batches
-that take each of its routes (padded parts skipped or not, Kx in shared or
-device memory), solves the deploy QP batch through it (bench.py's accuracy
-gates), serves plan_batch requests with the shipped seq5 ConvLSTM weights,
-and prints one JSON line per kernel and a final status line.
+it against its plain PyTorch version at the deploy shape, on batches that
+take each of its routes (padded parts skipped or not, Kx in shared or
+device memory) and at the training shape, solves the deploy QP batch
+through it (bench.py's accuracy gates), serves plan_batch requests with the
+shipped seq5 ConvLSTM weights, trains that net through the QP for one
+epoch (Trainer, TRAIN operating point), refines one request's segment
+times through the differentiable QP, and prints one JSON line per kernel
+and a final status line.
 
     python3 chip_smoke.py
 
@@ -20,6 +23,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -28,6 +32,8 @@ SEED = 123                # bench.py's scenario seed
 CHUNK_TOL = 5e-4          # kernel vs plain, of each array's largest entry
 ORACLE_N = 8
 REQUESTS = 3              # plan_batch requests served on the main path
+TRAIN_N = 320             # scenarios of the train phase: 9 steps of 32, 1 val
+REFINE_B = 256            # the refine request's batch
 # H100 SXM published peaks (NVIDIA data sheet): f32 on the CUDA cores and
 # HBM3 bandwidth, for the kernel's bound
 PEAK_F32_FLOPS = 67e12
@@ -92,11 +98,13 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from allocnet_tpu_torch import config
     from allocnet_tpu_torch.config import QPConfig, SolverConfig
     from allocnet_tpu_torch.models import weights
     from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
     from allocnet_tpu_torch.ops import admm, admm_chunk, qp
     from allocnet_tpu_torch.planner import pipeline
+    from allocnet_tpu_torch.train import dataset, losses, train_step, trainer
     from allocnet_tpu_torch.utils import scenarios
     from allocnet_tpu_torch.utils.device import resolve_device
 
@@ -301,14 +309,206 @@ def main():
         fail("plan_batch on the card disagrees with the CPU path")
     phase("serve", t0)
 
+    # ---- 5. train: one epoch through the QP (TRAIN, B=32) -----------------
+    t0 = time.perf_counter()
+    tcfg = config.TRAIN
+    tq, ts_ = tcfg.qp, tcfg.solver
+    tsc = scenarios.random_scenarios(tq, TRAIN_N, seed=SEED, min_seg=1)
+    loader = dataset.Loader(tsc, batch_size=tcfg.train.batch_size,
+                            train_ratio=tcfg.train.training_data_ratio,
+                            seed=tcfg.train.seed)
+    n_steps = len(loader.train_idx) // tcfg.train.batch_size
+    n_val = len(loader.val_idx) // tcfg.train.batch_size
+
+    # the kernel against its plain version at the training shape: the
+    # first training batch's first chunk
+    first = next(loader.epoch(0))
+    tdata = qp.build_qp(tq, first.state.astype(f32), first.hpolys.astype(f32),
+                        first.ref_times.astype(f32), first.seg, device=dev)
+    targs = admm_chunk.chunk_inputs(tdata, ts_)
+    got = admm_chunk.admm_chunk(*targs, it, ts_.sigma, ts_.alpha)
+    torch.cuda.synchronize()
+    want = admm_chunk.admm_chunk_reference(*targs, it, ts_.sigma, ts_.alpha)
+    terrs = []
+    for name, g, w in zip(("x", "z", "yh", "yeh"), got, want):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"kernel {name} not finite at the training shape")
+        terrs.append(float((g - w).abs().max())
+                     / max(1.0, float(w.abs().max())))
+        if terrs[-1] > CHUNK_TOL:
+            fail(f"admm_chunk {name} disagrees with its plain version at the "
+                 f"training shape: {terrs[-1]:.3e} of the largest entry")
+    train_chunk_ms = cuda_ms(lambda: admm_chunk.admm_chunk(
+        *targs, it, ts_.sigma, ts_.alpha), reps=20)
+    train_plain_ms = cuda_ms(lambda: admm_chunk.admm_chunk_reference(
+        *targs, it, ts_.sigma, ts_.alpha), reps=3)
+    tflops, tbytes = chunk_work(tq, it, admm_chunk.aeq_dense(
+        targs[5], targs[6], tq.n_var), targs[8], targs[10])
+    train_bound_ms = max(tflops / PEAK_F32_FLOPS, tbytes / PEAK_BYTES) * 1e3
+    print(f"admm_chunk at the training shape (B={tcfg.train.batch_size}, "
+          f"res={tq.res}) x {it} iterations: kernel {train_chunk_ms:.3f} ms, "
+          f"plain {train_plain_ms:.3f} ms, bound {train_bound_ms:.4f} ms "
+          f"({tflops:.3e} FLOP, {tbytes:.3e} B); max diff / max|plain| of "
+          f"x z yh yeh " + " ".join(f"{e:.3e}" for e in terrs))
+
+    def per_scenario(net_, batch, device):
+        """(per-scenario losses, solved flags) of one batch, no update."""
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        st, hp, rt = t(batch.state), t(batch.hpolys), t(batch.ref_times)
+        sg = torch.as_tensor(batch.seg, device=device).long()
+        with torch.no_grad():
+            times, tokens, sol, obj = train_step.forward(net_, tq, ts_, st,
+                                                         hp, sg)
+            per = [float(losses.compute_losses(
+                tcfg.loss, times[i:i + 1], tokens[i:i + 1], sg[i:i + 1],
+                sol.solved[i:i + 1], obj[i:i + 1], st[i:i + 1],
+                rt[i:i + 1], tcfg.model.token_thresh).total)
+                for i in range(len(batch.seg))]
+        return np.array(per), sol.solved.cpu().numpy()
+
+    tnet = ConvLSTMAllocNet(5, 256, token_thresh=0.5)
+    tnet.load_state_dict(weights.load_params(os.path.join(
+        ROOT, "data", "params", "seq5_tokenthresh0_35.msgpack")))
+    start = {k: v.clone() for k, v in tnet.state_dict().items()}
+    cpu_per, cpu_solved = per_scenario(tnet, first, "cpu")
+    tnet = tnet.to(dev)
+    gpu_per, gpu_solved = per_scenario(tnet, first, dev)
+
+    with tempfile.TemporaryDirectory() as workdir:
+        tr = trainer.Trainer(tcfg, tnet, loader, workdir)
+        torch.cuda.synchronize()
+        admm_chunk.admm_chunk.launches = 0
+        t1 = time.perf_counter()
+        tr.train(max_epochs=1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        train_launches = admm_chunk.admm_chunk.launches
+        with open(tr.log_path) as f:
+            records = [json.loads(line) for line in f]
+        ck = trainer.latest_checkpoint(tr.ckpt_dir)
+    steps = [r for r in records if "step" in r]
+    val = [r for r in records if r.get("split") == "val"]
+    print(f"train: {len(steps)} steps of {tcfg.train.batch_size} and "
+          f"{n_val} validation batch(es) in {train_s * 1e3:.1f} ms; admm_chunk "
+          f"launches {train_launches}; checkpoint {os.path.basename(ck)}")
+    print("  step losses: " + ", ".join(f"{r['obj']:.4f}" for r in steps)
+          + "; success " + ", ".join(f"{r['success_rate']:.3f}"
+                                     for r in steps))
+    if val:
+        print(f"  validation: loss {val[0]['obj']:.4f}, success "
+              f"{val[0]['success_rate']:.3f}")
+    if len(steps) != n_steps or len(val) != min(n_val, 1):
+        fail(f"train ran {len(steps)} steps and {len(val)} validations")
+    if not all(np.isfinite(r["obj"]) for r in steps + val):
+        fail("non-finite training loss")
+    if train_launches != ts_.n_chunks * (n_steps + n_val):
+        fail(f"train launched admm_chunk {train_launches} times, expected "
+             f"{ts_.n_chunks} x {n_steps + n_val} forward solves")
+    moved = max(float((v.cpu() - start[k]).abs().max())
+                for k, v in tnet.state_dict().items())
+    if not 0 < moved < 1:
+        fail(f"training moved the weights by {moved:.3e}")
+    agree = cpu_solved == gpu_solved
+    card_first = float(np.mean(gpu_per))
+    diff = float(np.abs(gpu_per - cpu_per)[agree].max() / max(
+        1.0, np.abs(cpu_per[agree]).max()))
+    print(f"  first step vs the CPU plain path: loss {steps[0]['obj']:.6f} "
+          f"(card, trainer), {card_first:.6f} (card, recomputed), "
+          f"{float(np.mean(cpu_per)):.6f} (CPU); solved flags agree on "
+          f"{int(agree.sum())} of {len(agree)}; per-scenario loss diff "
+          f"{diff:.3e} of the largest where they agree; weights moved by up "
+          f"to {moved:.3e}")
+    # a scenario at the tolerance may flip between two f32 reductions
+    # (one of 32 allowed); f32 through a QP of cond ~1e4: rtol 1e-3
+    if agree.sum() < len(agree) - 1 or diff > 1e-3:
+        fail("the first training step disagrees with the CPU plain path")
+    if abs(card_first - steps[0]["obj"]) > 1e-4 * max(1.0, abs(card_first)):
+        fail("the trainer's first loss differs from its recomputation")
+
+    # step time and its shares: forward (net, solve, objective, losses),
+    # backward (implicit KKT, net), optimizer (Adam, schedule)
+    bt = tr.to_device(first)
+    shares = {"forward": [], "backward": [], "optimizer": []}
+    for rep in range(4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.opt.zero_grad(set_to_none=True)
+        total, _ = train_step.loss_fn(tnet, tq, ts_, tcfg.loss, *bt,
+                                      tcfg.model.token_thresh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        total.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        tr.opt.step()
+        tr.lr_sched.step()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if rep:                                  # the first is a warm-up
+            for k, a, b in (("forward", t1, t2), ("backward", t2, t3),
+                            ("optimizer", t3, t4)):
+                shares[k].append((b - a) * 1e3)
+    step_ms = {k: float(np.mean(v)) for k, v in shares.items()}
+    print(f"  training step ms (3 timed, B={tcfg.train.batch_size}): "
+          f"{sum(step_ms.values()):.2f} = forward {step_ms['forward']:.2f} + "
+          f"backward {step_ms['backward']:.2f} + optimizer "
+          f"{step_ms['optimizer']:.2f}; "
+          f"{train_launches / (n_steps + n_val):g} launches per forward solve "
+          f"(counted in the train run)")
+    phase("train", t0)
+
+    # ---- 6. refine: one plan_batch with refine_steps=2 ---------------------
+    t0 = time.perf_counter()
+    rq = reqs[0]
+    rin = (rq.state[:REFINE_B], rq.hpolys[:REFINE_B], rq.seg[:REFINE_B])
+    base = pipeline.plan_batch(net.to(dev), cfg, scfg, *rin)
+    pipeline.plan_batch(net, cfg, scfg, *rin, refine_steps=2)   # warm-up
+    torch.cuda.synchronize()
+    admm_chunk.admm_chunk.launches = 0
+    t1 = time.perf_counter()
+    ref = pipeline.plan_batch(net, cfg, scfg, *rin, refine_steps=2)
+    torch.cuda.synchronize()
+    refine_ms = (time.perf_counter() - t1) * 1e3
+    refine_launches = admm_chunk.admm_chunk.launches
+    if not bool(torch.isfinite(ref.coeffs).all()):
+        fail("non-finite refined coefficients")
+    if refine_launches != 5 * scfg.n_chunks:
+        fail(f"refine launched admm_chunk {refine_launches} times, expected "
+             f"5 solves x {scfg.n_chunks}")
+    both = (base.solved & ref.solved).cpu()
+    ob, orf = base.obj.cpu()[both], ref.obj.cpu()[both]
+    improved = int((orf < ob).sum())
+    # refinement keeps each plan's total of the 0.05-clamped active times
+    active = (torch.arange(cfg.max_seg, device=dev)[None, :]
+              < torch.as_tensor(rin[2], device=dev)[:, None])
+    tot_b = torch.where(active, torch.clamp_min(base.times, 0.05),
+                        base.times).sum(1)
+    tot_err = float(((ref.times.sum(1) - tot_b).abs() / tot_b).max())
+    print(f"refine: plan_batch B={REFINE_B}, refine_steps=2: "
+          f"{refine_ms:.1f} ms; admm_chunk launches {refine_launches}; "
+          f"solved {int(base.solved.sum())} -> {int(ref.solved.sum())}; on "
+          f"the {int(both.sum())} solved both ways mean objective "
+          f"{float(ob.mean()):.4f} -> {float(orf.mean()):.4f}, {improved} "
+          f"improved; total time kept to {tot_err:.2e}")
+    if not both.any() or float(orf.mean()) > float(ob.mean()) * (1 + 1e-4):
+        fail("refinement raised the mean objective")
+    if tot_err > 1e-4:
+        fail("refinement changed the plans' total time")
+    phase("refine", t0)
+
     kernels = [{
         "name": "admm_chunk", "route": "cuda",
         "source": "allocnet_tpu_torch/csrc/admm_chunk.cu",
         "replaces": "allocnet_tpu/ops/pallas/admm_tiled.py:236",
-        "launches": launches, "max_abs_err": max_err, "ms": chunk_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "launches": launches, "max_abs_err": max_err,
+        "ms": chunk_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
+        "launches_by_path": {"serve": launches, "train": train_launches,
+                             "refine": refine_launches},
+        "train_shape": {"ms": train_chunk_ms, "plain_ms": train_plain_ms,
+                        "bound_ms": train_bound_ms,
+                        "max_rel_err": max(terrs)},
     }]
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -15,6 +15,7 @@ from allocnet_tpu.ops import qp as jqp
 from allocnet_tpu_torch.config import QPConfig, SolverConfig
 from allocnet_tpu_torch.ops import admm, ldl, qp
 from allocnet_tpu_torch.utils import scenarios
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _both(dtype, B=6, seed=5, res=10):

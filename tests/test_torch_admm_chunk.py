@@ -15,6 +15,7 @@ from allocnet_tpu.ops.pallas import admm_tiled as K1
 from allocnet_tpu_torch.config import QPConfig, SolverConfig
 from allocnet_tpu_torch.ops import admm, admm_chunk, qp
 from allocnet_tpu_torch.utils import scenarios
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIGMA, ALPHA = 1e-6, 1.6
 

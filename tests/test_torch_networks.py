@@ -1,6 +1,8 @@
 """Port parity, networks and weights: allocnet_tpu_torch's ConvLSTMAllocNet
 with parameters read by its own msgpack reader against the JAX net.apply
-on the shipped nets and the runs/big4 flagship checkpoint (CPU, f32)."""
+on the shipped nets and the runs/big4 flagship checkpoint (CPU, f32), and
+its ConvMLPAllocNet against the JAX ConvMLPAllocNet from flax-initialized
+parameters (no MLP checkpoint ships)."""
 
 import os
 
@@ -13,10 +15,12 @@ from flax import serialization
 
 from allocnet_tpu.models import import_torch
 from allocnet_tpu.models.networks import ConvLSTMAllocNet as JConvLSTMAllocNet
+from allocnet_tpu.models.networks import ConvMLPAllocNet as JConvMLPAllocNet
 from allocnet_tpu_torch.config import QPConfig
 from allocnet_tpu_torch.models import packing, weights
-from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
+from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet, ConvMLPAllocNet
 from allocnet_tpu_torch.utils import scenarios
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (file, seq_len, stop-token threshold): imported reference nets stop at
@@ -123,3 +127,69 @@ def test_packing_roundtrip():
 def test_from_jax_params_rejects_foreign_tree():
     with pytest.raises(KeyError):
         weights.from_jax_params({"params": {"dense": np.zeros(3)}})
+
+
+def _mlp_pair(seq, hidden, seed):
+    jnet = JConvMLPAllocNet(seg=5, seq_len=seq, hidden_size=hidden)
+    sc = scenarios.random_scenarios(QPConfig(max_seg=seq), 16, seed=seed,
+                                    min_seg=1)
+    st = jnp.asarray(sc.state).reshape(16, 2, 9).transpose(0, 2, 1)
+    hp = jnp.transpose(jnp.asarray(sc.hpolys), (0, 2, 3, 1))
+    jparams = jnet.init(jax.random.PRNGKey(seed), st, hp)
+    jparams = jax.tree.map(lambda a: np.asarray(a, np.float32), jparams)
+    net = ConvMLPAllocNet(seg=5, seq_len=seq, hidden_size=hidden)
+    net.load_state_dict(weights.from_jax_params(jparams))
+    return jnet, jparams, net, sc
+
+
+@pytest.mark.parametrize("seq,hidden", [(5, 32), (10, 128)])
+def test_mlp_matches_jax(seq, hidden):
+    jnet, jparams, net, sc = _mlp_pair(seq, hidden, seed=6)
+    outs = {}
+    for name, jdt, tdt in (("f64", jnp.float64, torch.float64),
+                           ("f32", jnp.float32, torch.float32)):
+        st = sc.state.astype(jdt)
+        hp = sc.hpolys.astype(jdt)
+        jp = jax.tree.map(lambda a: jnp.asarray(a, jdt), jparams)
+        jt = jnet.apply(jp, jnp.asarray(st).reshape(16, 2, 9).transpose(0, 2, 1),
+                        jnp.transpose(jnp.asarray(hp), (0, 2, 3, 1)))
+        with torch.no_grad():
+            t = net.to(tdt)(packing.pack_state(torch.tensor(st)),
+                            packing.pack_hpolys(torch.tensor(hp)))
+        assert t.dtype == tdt and t.shape == (16, 5)
+        outs[name] = (t.numpy(), np.asarray(jt))
+    t64, jt64 = outs["f64"]
+    # f64, the same layer math (LayerNorm in another summation order):
+    # agreement to rounding
+    np.testing.assert_allclose(t64, jt64, rtol=1e-12, atol=0)
+    # f32 against the f64 result: sums over <= 128 terms and two
+    # LayerNorms, ~1e-6 relative; rtol 1e-4 as the ConvLSTM's
+    for t32 in outs["f32"]:
+        np.testing.assert_allclose(t32, t64, rtol=1e-4, atol=1e-6)
+    assert (t64 > 0).all()
+
+
+def test_mlp_dropout_only_when_asked():
+    """The JAX training step never passes deterministic=False, so the MLP
+    trains without dropout: train() mode must not turn it on."""
+    _, _, net, sc = _mlp_pair(5, 32, seed=7)
+    st = packing.pack_state(torch.tensor(sc.state, dtype=torch.float32))
+    hp = packing.pack_hpolys(torch.tensor(sc.hpolys, dtype=torch.float32))
+    with torch.no_grad():
+        want = net.eval()(st, hp)
+        assert torch.equal(net.train()(st, hp), want)
+        torch.manual_seed(0)
+        assert not torch.equal(net(st, hp, deterministic=False), want)
+
+
+def test_mlp_init_and_names():
+    net = ConvMLPAllocNet()
+    assert torch.equal(net.output_module[8].bias, torch.ones(5))
+    assert set(net.state_dict()) == set(weights.MLP_JAX_TO_TORCH.values())
+    jnet = JConvMLPAllocNet()
+    jp = jnet.init(jax.random.PRNGKey(0), jnp.zeros((1, 9, 2)),
+                   jnp.zeros((1, 50, 4, 5)))
+    leaves = {tuple(k.key for k in path)[1:]
+              for path, _ in jax.tree_util.tree_leaves_with_path(jp)}
+    assert leaves == set(weights.MLP_JAX_TO_TORCH)
+    np.testing.assert_array_equal(np.asarray(jp["params"]["l3_b"]), 1.0)

@@ -14,6 +14,7 @@ from allocnet_tpu.utils import scenarios as jscenarios
 from allocnet_tpu_torch.config import QPConfig
 from allocnet_tpu_torch.ops import bases, qp
 from allocnet_tpu_torch.utils import scenarios
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CFGS = [dict(), dict(res=10), dict(order=3), dict(res=10, max_vel=5.0, max_acc=7.0)]
 
@@ -158,3 +159,34 @@ def test_normal_matrix_is_the_dense_gram():
         + 3.0 * G.transpose(1, 2) @ G
     got = qp.normal_matrix(data, 1e-6, 300.0, 3.0)
     _close(got.numpy(), want.numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kw", CFGS[:3])
+def test_scale_coeffs_roundtrip_and_matches(kw, dtype):
+    data, jdata = _both(kw, dtype)
+    cfg = data.cfg
+    rng = np.random.default_rng(2)
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    c = rng.normal(size=(6, cfg.max_seg, 3, cfg.D)).astype(np_dt)
+    x = qp.scale_coeffs(data, torch.tensor(c))
+    _close(x.numpy(), jqp.scale_coeffs(jdata, jnp.asarray(c)), TOL[dtype])
+    # unscale(scale(c)) = c on active segments, 0 on padded ones
+    back = qp.unscale_coeffs(data, x).numpy()
+    mask = data.seg_mask.numpy()[:, :, None, None]
+    _close(back, c * mask, TOL[dtype])
+    _close(qp.scale_coeffs(data, qp.unscale_coeffs(data, x)).numpy(),
+           x.numpy() * mask, TOL[dtype])
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_infer_seg_matches(seed):
+    sc = scenarios.random_scenarios(QPConfig(), 16, seed=seed, min_seg=1)
+    hp = np.array(sc.hpolys)
+    hp[3, 1] = 0.0                         # a gap ends the corridor early
+    got = qp.infer_seg(torch.tensor(hp)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jqp.infer_seg(
+        jnp.asarray(hp))))
+    want = np.array(sc.seg)
+    want[3] = min(want[3], 1)
+    np.testing.assert_array_equal(got, want)

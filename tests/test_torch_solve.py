@@ -18,6 +18,7 @@ from allocnet_tpu_torch.config import QPConfig, SolverConfig
 from allocnet_tpu_torch.ops import admm, admm_chunk, qp
 from allocnet_tpu_torch.utils import scenarios
 from tests.oracle import qp_oracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, SEED = 8, 5
 # small budget (2 x 75 iterations), as tests/test_pallas_kernel.py
