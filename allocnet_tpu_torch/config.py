@@ -130,6 +130,34 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CorridorConfig:
+    """Corridor generation (reference: sfc_gen.hpp, corridor_generator.py)."""
+
+    # local cloud crop range and inflation progress per window
+    # (sfc_gen::convexCover(range=7.0, progress=3.0))
+    range_xy: float = 7.0
+    progress: float = 3.0
+    firi_iters: int = 4
+    # RRT front end (rrt3D.py:25 maxiter, stepsize)
+    rrt_max_iter: int = 5000
+    rrt_step: float = 1.0
+    rrt_goal_bias: float = 0.1
+    safe_distance: float = 0.5
+    # Informed RRT* (OMPL InformedRRTstar, sfc_gen.hpp:45-114) on the native
+    # grid; the Python RRT is plain RRT.  A time budget of 0 bounds the
+    # search by iterations only, so a seeded run is reproducible.
+    use_rrt_star: bool = True
+    rrt_star_time_budget: float = 0.0
+    # iteration cap of the latency-bounded front end for mid-flight replans
+    rrt_online_max_iter: int = 1000
+
+    def online(self) -> "CorridorConfig":
+        """The deterministic, iteration-bounded front end for 10 Hz
+        replans."""
+        return dataclasses.replace(self, rrt_max_iter=self.rrt_online_max_iter)
+
+
+@dataclasses.dataclass(frozen=True)
 class PhysParams:
     """Quadrotor physical parameters for the flatness map (planner.yaml:
     1-12)."""
@@ -144,15 +172,17 @@ class PhysParams:
 
 @dataclasses.dataclass(frozen=True)
 class AllocNetConfig:
-    """The JAX package's AllocNetConfig without its `corridor` field: the
-    corridor front end is not ported yet."""
-
     qp: QPConfig = dataclasses.field(default_factory=QPConfig)
     solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    corridor: CorridorConfig = dataclasses.field(default_factory=CorridorConfig)
     phys: PhysParams = dataclasses.field(default_factory=PhysParams)
+
+
+# Deployment operating point (planner.yaml): order 4, res 20, v <= 4, a <= 6.
+DEPLOY = AllocNetConfig()
 
 
 # Training operating point (network configs): res 10, v <= 5, a <= 7.

@@ -12,6 +12,8 @@ head.  The JAX package's parameters load by name (models/weights.py).
 
 from __future__ import annotations
 
+import copy
+
 import torch
 from torch import nn
 
@@ -128,3 +130,15 @@ class ConvMLPAllocNet(nn.Module):
         # Softplus(beta=2) as log(1 + exp(2x)) / 2 without torch's
         # linear cut-off above 2x = 20, as jax.nn.softplus
         return torch.logaddexp(2.0 * x, torch.zeros_like(x)) / 2.0
+
+
+def bind(net: nn.Module, params: dict | None) -> nn.Module:
+    """`net` with the weights `params` (a state_dict, e.g. from
+    models/weights.load_params): the counterpart of the JAX package's
+    (net, params) pair.  A copy is loaded, so the caller's net keeps its
+    weights; None returns `net` itself."""
+    if params is None:
+        return net
+    out = copy.deepcopy(net)
+    out.load_state_dict(params)
+    return out

@@ -419,3 +419,13 @@ def scale_coeffs(data: QPData, c: torch.Tensor) -> torch.Tensor:
                         device=dev)
     scale = s * data.times[:, :, None] ** pw
     return c * scale[:, :, None, :]
+
+
+def concat(datas) -> QPData:
+    """Several QPData batches as one, along the batch axis: every tensor
+    field concatenated, `cfg` kept (the batches must share it)."""
+    cfg = datas[0].cfg
+    if any(d.cfg != cfg for d in datas):
+        raise ValueError("qp.concat: the batches have different configs")
+    return QPData(*(torch.cat(fields) if isinstance(fields[0], torch.Tensor)
+                    else fields[0] for fields in zip(*datas)))

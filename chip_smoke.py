@@ -7,14 +7,20 @@ device memory) and at the training shape, solves the deploy QP batch
 through it (bench.py's accuracy gates), serves plan_batch requests with the
 shipped seq5 ConvLSTM weights, trains that net through the QP for one
 epoch (Trainer, TRAIN operating point), refines one request's segment
-times through the differentiable QP, and prints one JSON line per kernel
-and a final status line.
+times through the differentiable QP, then at the DEPLOY point builds a
+voxel map from a point cloud, plans two missions' corridors (native
+Informed RRT*, FIRI, the fused corridor; held against the CPU's) and flies
+them with the 10 Hz receding-horizon driver (cold, warm and rescue ticks;
+the kernel held against its plain version on each tick batch, the first
+cold tick against the CPU path), and prints one JSON line per kernel and
+a final status line.
 
     python3 chip_smoke.py
 
-Needs a CUDA device and the CUDA toolkit (nvcc); exits non-zero without
-them, and on any failed check.  Writes nothing but the kernel build in
-allocnet_tpu_torch/_build/.  Imports neither JAX nor the JAX package.
+Needs a CUDA device, the CUDA toolkit (nvcc) and g++; exits non-zero
+without them, and on any failed check.  Writes nothing but the kernel and
+runtime builds in allocnet_tpu_torch/_build/.  Imports neither JAX nor the
+JAX package.
 """
 
 import importlib.util
@@ -34,6 +40,18 @@ ORACLE_N = 8
 REQUESTS = 3              # plan_batch requests served on the main path
 TRAIN_N = 320             # scenarios of the train phase: 9 steps of 32, 1 val
 REFINE_B = 256            # the refine request's batch
+NET = os.path.join("data", "params", "seq5_tokenthresh0_35.msgpack")
+# corridor and fly phases: map 0 of scripts/drive_eval.py, 2 missions
+# sampled as its sample_missions does, flown at DEPLOY for at most 200
+# ticks; scripts/smoke_missions_jax.py flies the same missions through
+# the JAX package
+MAP_SEED = 100
+EXTENT = (20.0, 20.0, 4.0)
+MISSION_SEED = 1
+N_MISSIONS = 2
+MAX_TICKS = 200
+ARRIVE_DIST = 0.3         # drive_eval's arrival: done and within 0.3 m
+CORRIDOR_TOL = 1e-3       # card vs CPU corridor, of the largest row entry
 # H100 SXM published peaks (NVIDIA data sheet): f32 on the CUDA cores and
 # HBM3 bandwidth, for the kernel's bound
 PEAK_F32_FLOPS = 67e12
@@ -103,7 +121,9 @@ def main():
     from allocnet_tpu_torch.models import weights
     from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
     from allocnet_tpu_torch.ops import admm, admm_chunk, qp
-    from allocnet_tpu_torch.planner import pipeline
+    from allocnet_tpu_torch.planner import (driver, pipeline, planner,
+                                            replan, sfc)
+    from allocnet_tpu_torch.train import datagen
     from allocnet_tpu_torch.train import dataset, losses, train_step, trainer
     from allocnet_tpu_torch.utils import scenarios
     from allocnet_tpu_torch.utils.device import resolve_device
@@ -115,12 +135,12 @@ def main():
 
     t_all = time.perf_counter()
     dev = resolve_device()           # the card; TF32 off
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(f"device: {kind} x{torch.cuda.device_count()}, torch "
+    print(f"device: {device_kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}",
           flush=True)
 
@@ -496,6 +516,209 @@ def main():
         fail("refinement changed the plans' total time")
     phase("refine", t0)
 
+    # ---- 7. corridor: map, routes, corridors at DEPLOY on the card -------
+    t0 = time.perf_counter()
+    dcfg = config.DEPLOY
+    lo, hi = np.zeros(3), np.asarray(EXTENT)
+    pts = datagen.random_obstacle_map(MAP_SEED, EXTENT)
+    map_ms = []
+    for _ in range(2):               # the first builds the C++ runtime
+        # (unless an earlier command in the same checkout did)
+        t1 = time.perf_counter()
+        pmap = planner.build_map(pts, lo, hi, scale=0.25, dilate_r=2,
+                                 native=True, device=dev)
+        torch.cuda.synchronize()
+        map_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"corridor: map {MAP_SEED} ({len(pts)} points, "
+          f"{pmap.grid.occ.shape} voxels, {len(pmap.surf)} surface points): "
+          f"build_map {map_ms[0]:.1f} ms the first time, "
+          f"{map_ms[1]:.1f} ms the second")
+    t1 = time.perf_counter()
+    missions = planner.sample_missions(pmap, dcfg, np.random.default_rng(
+        MISSION_SEED), N_MISSIONS, lo, hi, device=dev)
+    print(f"  sampled {len(missions)} missions in "
+          f"{(time.perf_counter() - t1) * 1e3:.1f} ms (seed {MISSION_SEED})")
+    if len(missions) != N_MISSIONS:
+        fail(f"sampled {len(missions)} missions of {N_MISSIONS}")
+    route_ms, corr_ms = [], []
+    for k, (start, goal, rseed, cp) in enumerate(missions):
+        t1 = time.perf_counter()
+        route = planner.search_route(pmap, start, goal, dcfg.corridor, rseed)
+        route_ms.append((time.perf_counter() - t1) * 1e3)
+        args = (route, pmap.surf, lo, hi, dcfg.corridor, dcfg.qp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hp, seg, _, goal_r = sfc.corridor_online(*args, device=dev)
+        corr_ms.append((time.perf_counter() - t1) * 1e3)
+        hp_c, seg_c, _, goal_c = sfc.corridor_online(*args, device="cpu")
+        scale = max(1.0, float(np.abs(hp_c).max()))
+        dist = max(sfc.face_set_distance(hp[i], hp_c[i])
+                   for i in range(min(seg, dcfg.qp.max_seg)))
+        print(f"  mission {k}: {np.round(start, 3).tolist()} -> "
+              f"{np.round(goal_r, 3).tolist()}, route of {len(route)} "
+              f"points ({route_ms[-1]:.1f} ms), seg {seg} (CPU {seg_c}); "
+              f"corridor_online {corr_ms[-1]:.1f} ms; card vs CPU: faces "
+              f"{dist / scale:.3e} of the largest entry, goal "
+              f"{float(np.abs(goal_r - goal_c).max()):.3e}")
+        if seg != seg_c or dist > CORRIDOR_TOL * scale:
+            fail(f"mission {k}: the card's corridor differs from the CPU's")
+        if seg != cp.seg or not np.array_equal(hp, cp.hpolys):
+            fail(f"mission {k}: plan_corridor and corridor_online differ")
+    phase("corridor", t0)
+    # ---- 8. fly: the 10 Hz driver on the sampled missions (DEPLOY) -------
+    t0 = time.perf_counter()
+    params = weights.load_params(os.path.join(ROOT, NET))
+    drv = driver.Driver(ConvLSTMAllocNet(5, 256, token_thresh=0.5), params,
+                        dcfg, rate_hz=10.0, certify=True, device=dev)
+    drv.prewarm()
+    k1, launch = admm_chunk.admm_chunk, admm_chunk._launch
+    recorded = {}             # the kernel's inputs on each tick batch
+
+    def recording_launch(lib, *a):
+        """admm_chunk._launch, keeping the first arguments (the kernel's
+        tensors, n_iters, sigma, alpha) of each tick batch: the cold hedge
+        (B=3), a warm tick with a nonzero primal and dual start (B=1), a
+        rescue (B=4)."""
+        B = a[0].shape[0]
+        kind = {3: "cold", 1: "warm", 4: "rescue"}.get(B)
+        fresh = kind is not None and kind not in recorded
+        if fresh and (kind != "warm" or (bool(a[0].any())
+                                         and bool(a[2].any()))):
+            recorded[kind] = [t.clone() if torch.is_tensor(t) else t
+                              for t in a[:17]]
+        return launch(lib, *a)
+
+    per_call = {"cold": [], 0: [], 1: [], 2: []}    # launches per tick
+    tick_inputs = {}
+    cold_fn, tick_fn = drv._cold, drv._tick
+
+    def cold_counted(*a):
+        tick_inputs.setdefault("cold", [x.clone() for x in a])
+        n0 = k1.launches
+        out = cold_fn(*a)
+        per_call["cold"].append(k1.launches - n0)
+        return out
+
+    def tick_counted(*a):
+        tick_inputs["warm"] = a
+        n0 = k1.launches
+        out = tick_fn(*a)
+        per_call[out[4]].append(k1.launches - n0)
+        return out
+
+    drv._cold, drv._tick = cold_counted, tick_counted
+    admm_chunk._launch = recording_launch
+    flights = []
+    torch.cuda.synchronize()
+    k1.launches = 0
+    for start, goal, rseed, cp in missions:
+        st = drv.reset(start, cp.route[-1], cp.hpolys, cp.seg)
+        st, res = drv.run(st, MAX_TICKS, stop_when_done=True, stall_limit=5)
+        flights.append((st, res))
+    fly_launches = k1.launches
+    admm_chunk._launch = launch
+    drv._cold, drv._tick = cold_fn, tick_fn
+
+    cold_ms, warm_ms, n_ticks, n_solved, n_track = [], [], 0, 0, 0
+    n_cert, n_acc, n_arrived = 0, 0, 0
+    for k, (st, res) in enumerate(flights):
+        for r in res:
+            s_ = r.state
+            if not (np.isfinite(s_.pos).all() and np.isfinite(s_.vel).all()
+                    and np.isfinite(s_.acc).all()):
+                fail(f"mission {k}: a tick gave a non-finite state")
+        dist = float(np.linalg.norm(st.pos - st.goal))
+        arrived = bool(st.done) and dist < ARRIVE_DIST
+        n_arrived += arrived
+        cold_ms.append(res[0].latency_s * 1e3)
+        warm_ms += [r.latency_s * 1e3 for r in res[1:]]
+        n_ticks += len(res)
+        n_solved += sum(r.solved for r in res)
+        n_track += sum(r.tracking for r in res)
+        certs = [r.certified for r in res if r.certified is not None]
+        n_cert += sum(certs)
+        n_acc += len(certs)
+        print(f"fly: mission {k}: {len(res)} ticks, arrived {arrived}, "
+              f"final distance {dist:.4f} m, solved {sum(r.solved for r in res)}"
+              f", tracking {sum(r.tracking for r in res)}, light rescues "
+              f"{sum(r.rescue == 1 for r in res)}, heavy "
+              f"{sum(r.rescue == 2 for r in res)}, certified "
+              f"{sum(certs)} of {len(certs)} accepted plans; cold tick "
+              f"{cold_ms[-1]:.1f} ms")
+    launches_per = {k: sorted(set(v)) for k, v in per_call.items()}
+    print(f"  cold tick ms {', '.join(f'{t:.1f}' for t in cold_ms)}; warm "
+          f"tick p50 {np.percentile(warm_ms, 50):.1f} ms, p99 "
+          f"{np.percentile(warm_ms, 99):.1f} ms over {len(warm_ms)} ticks; "
+          f"tick-solve rate {n_solved / n_ticks:.4f} ({n_solved} of "
+          f"{n_ticks}); tracking {n_track}; light rescues {len(per_call[1])}"
+          f", heavy {len(per_call[2])}; arrived {n_arrived} of "
+          f"{len(flights)}; certified {n_cert} of {n_acc}")
+    print(f"  admm_chunk launches: {fly_launches} in the fly phase; per cold "
+          f"tick {launches_per['cold']} ({len(per_call['cold'])} ticks), per "
+          f"warm tick {launches_per[0]} ({len(per_call[0])}), per light "
+          f"rescue tick {launches_per[1]}, per heavy {launches_per[2]}")
+    if fly_launches != sum(sum(v) for v in per_call.values()):
+        fail("admm_chunk launched outside the ticks")
+    if not per_call["cold"] or not per_call[0] or min(
+            min(v) for v in per_call.values() if v) < 1:
+        fail("a tick ran without launching admm_chunk")
+    if n_arrived == 0:
+        fail("no mission arrived")
+
+    # the first cold tick again on the CPU's plain path, same corridor
+    cpu_cold = driver.make_cold_tick(
+        ConvLSTMAllocNet(5, 256, token_thresh=0.5), drv.cfg_tick, params)
+    c_in = [x.cpu() for x in tick_inputs["cold"]]
+    g_out = drv._cold(*tick_inputs["cold"])
+    c_out = cpu_cold(*c_in)
+    g_c, c_c = g_out[1].cpu().numpy(), c_out[1].numpy()
+    cold_diff = float(np.abs(g_c - c_c).max() / max(1.0, np.abs(c_c).max()))
+    print(f"  first cold tick vs the CPU plain path: solved "
+          f"{bool(g_out[0][0])} / {bool(c_out[0][0])}, coefficients "
+          f"{cold_diff:.3e} of the largest")
+    if bool(g_out[0][0]) != bool(c_out[0][0]) or cold_diff > 1e-3:
+        fail("the first cold tick on the card disagrees with the CPU path")
+
+    # the kernel against its plain version on the tick batches
+    if "rescue" not in recorded:
+        # no tick missed: force one light rescue on the last warm input
+        admm_chunk._launch = recording_launch
+        driver._warm_tick(drv.cfg_tick, 0.1, 0, True, *tick_inputs["warm"],
+                          rescue_scfg=replan.rescue_solver_config(
+                              drv.cfg_tick.solver))
+        admm_chunk._launch = launch
+    tick_shapes = {}
+    for batch in ("cold", "warm", "rescue"):
+        if batch not in recorded:
+            fail(f"no {batch} batch reached admm_chunk")
+        a = recorded[batch]
+        got = k1(*a)
+        torch.cuda.synchronize()
+        want = admm_chunk.admm_chunk_reference(*a)
+        errs = []
+        for name, g, w in zip(("x", "z", "yh", "yeh"), got, want):
+            if not bool(torch.isfinite(g).all()):
+                fail(f"kernel {name} not finite on the {batch} batch")
+            errs.append(float((g - w).abs().max())
+                        / max(1.0, float(w.abs().max())))
+        if max(errs) > CHUNK_TOL:
+            fail(f"admm_chunk disagrees with its plain version on the {batch} "
+                 f"batch: {max(errs):.3e} of the largest entry")
+        ms = cuda_ms(lambda: k1(*a), reps=20)
+        pms = cuda_ms(lambda: admm_chunk.admm_chunk_reference(*a), reps=3)
+        fl, nb = chunk_work(dcfg.qp, a[14], admm_chunk.aeq_dense(
+            a[5], a[6], dcfg.qp.n_var), a[8], a[10])
+        bms = max(fl / PEAK_F32_FLOPS, nb / PEAK_BYTES) * 1e3
+        tick_shapes[batch] = {"B": int(a[0].shape[0]), "iters": int(a[14]),
+                             "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                             "max_rel_err": max(errs)}
+        print(f"  admm_chunk on the {batch} batch (B={a[0].shape[0]}, "
+              f"{a[14]} iterations): kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+              f"bound {bms:.5f} ms ({fl:.3e} FLOP, {nb:.3e} B); max diff / "
+              f"max|plain| of x z yh yeh "
+              + " ".join(f"{e:.3e}" for e in errs))
+    phase("fly", t0)
+
     kernels = [{
         "name": "admm_chunk", "route": "cuda",
         "source": "allocnet_tpu_torch/csrc/admm_chunk.cu",
@@ -504,8 +727,17 @@ def main():
         "ms": chunk_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-        "launches_by_path": {"serve": launches, "train": train_launches,
-                             "refine": refine_launches},
+        "launches_by_path": {
+            "serve": launches, "train": train_launches,
+            "refine": refine_launches,
+            "cold_tick": sum(per_call["cold"]), "warm_tick": sum(per_call[0]),
+            "rescue": sum(per_call[1]) + sum(per_call[2]),
+            "fly": fly_launches},
+        "launches_per_tick": {"cold": launches_per["cold"],
+                              "warm": launches_per[0],
+                              "light_rescue": launches_per[1],
+                              "heavy_rescue": launches_per[2]},
+        "tick_shapes": tick_shapes,
         "train_shape": {"ms": train_chunk_ms, "plain_ms": train_plain_ms,
                         "bound_ms": train_bound_ms,
                         "max_rel_err": max(terrs)},
@@ -514,7 +746,7 @@ def main():
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

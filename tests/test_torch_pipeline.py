@@ -165,7 +165,11 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "new = ['ops.qp_diff', 'planner.refine', 'planner.trajectory', "
         "'train.losses', 'train.train_step', 'train.dataset', "
-        "'train.trainer', 'train.evaluate']\n"
+        "'train.trainer', 'train.evaluate', 'ops.voxel', 'ops.lp', "
+        "'ops.lbfgs', 'ops.mvie', 'ops.firi', 'planner.native', "
+        "'planner.rrt', 'planner.sfc', 'planner.planner', "
+        "'planner.flatness', 'planner.control', 'planner.replan', "
+        "'planner.driver', 'train.datagen']\n"
         "missing = [m for m in new if 'allocnet_tpu_torch.' + m not in "
         "sys.modules]\n"
         "assert not missing, missing\n"
