@@ -199,3 +199,8 @@ PHASE1 = AllocNetConfig(qp=QPConfig(order=4, res=10, max_vel=5.0, max_acc=8.0),
 CERTIFY_SOLVER = SolverConfig(n_chunks=4, iters_per_chunk=250,
                               polish_rounds=6, polish_drop_passes=1,
                               ns_rho_update=False)
+
+
+def jerk(cfg: QPConfig) -> QPConfig:
+    """The min-jerk variant of a QP shape (order 3, degree 5)."""
+    return dataclasses.replace(cfg, order=3)

@@ -166,3 +166,19 @@ def from_jax_params(tree: dict) -> dict:
 def load_params(path: str) -> dict:
     """state_dict from a flax msgpack parameter or checkpoint file."""
     return from_jax_params(read_msgpack(path))
+
+
+def to_jax_params(sd: dict) -> dict:
+    """The inverse of `from_jax_params`: a ConvLSTM or ConvMLP state_dict
+    -> the JAX package's params tree {'params': {...}} with float32 numpy
+    leaves (names only change; both keep torch's weight layouts)."""
+    names = (JAX_TO_TORCH if 'output_module.weight_ih_l0' in sd
+             else MLP_JAX_TO_TORCH)
+    tree: dict = {}
+    for path, key in names.items():
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = sd[key].detach().cpu().numpy().astype(np.float32)
+    return {'params': tree}
+

@@ -68,19 +68,37 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(profile: bool) -> list:
+    return NVCC_FLAGS + (["-DADMM_CHUNK_PROFILE"] if profile else [])
+
+
+def library_name(profile: bool = False) -> str:
+    """File name of the built library: keyed by a hash of the source and
+    the flags, so an edit of either builds anew."""
+    key = hashlib.sha256(SOURCE.read_bytes()
+                         + " ".join(_flags(profile)).encode()).hexdigest()
+    return f"admm_chunk_{key[:16]}.so"
+
+
+def set_build_dir(path) -> None:
+    """Build into (and load from) `path` from now on."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    build.cache_clear()
+    _library.cache_clear()
+
+
 @functools.cache
 def build(profile: bool = False) -> dict:
-    """Compile the kernel into BUILD_DIR (keyed by a hash of the source and
-    flags) unless that library exists.  `profile` builds the variant that
-    records per-phase cycle counts (-DADMM_CHUNK_PROFILE).  Returns {'path',
-    'seconds', 'ptxas'}: build wall time (0 if it was already built) and
-    the `-Xptxas -v` report (registers, shared memory, spills)."""
-    flags = NVCC_FLAGS + (["-DADMM_CHUNK_PROFILE"] if profile else [])
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    """Compile the kernel into BUILD_DIR unless that library exists there
+    (`library_name`).  `profile` builds the variant that records per-phase
+    cycle counts (-DADMM_CHUNK_PROFILE).  Returns {'path', 'seconds',
+    'ptxas'}: build wall time (0 if it was already built) and the
+    `-Xptxas -v` report (registers, shared memory, spills)."""
+    flags = _flags(profile)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"admm_chunk_{key}.so"
-    log = BUILD_DIR / f"admm_chunk_{key}.log"
+    lib = BUILD_DIR / library_name(profile)
+    log = lib.with_suffix(".log")
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0,
                 "ptxas": log.read_text() if log.exists() else ""}
@@ -183,17 +201,49 @@ def admm_chunk(x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals, h, seg_mask,
 
     CPU tensors run `admm_chunk_reference`; CUDA tensors launch the kernel
     (on the current stream) or raise.  `admm_chunk.launches` counts kernel
-    launches."""
+    launches.  Calls the registered operator `allocnet_torch::admm_chunk`,
+    so that `torch.export` can trace a program that contains it."""
+    return torch.ops.allocnet_torch.admm_chunk(
+        x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals, h, seg_mask,
+        rho_i, rho_e, basis, int(n_iters), float(sigma), float(alpha))
+
+
+admm_chunk.launches = 0
+
+
+@torch.library.custom_op("allocnet_torch::admm_chunk", mutates_args=())
+def _admm_chunk_op(x: torch.Tensor, z: torch.Tensor, yh: torch.Tensor,
+                   yeh: torch.Tensor, kx: torch.Tensor, aeq_val: torch.Tensor,
+                   aeq_blk: torch.Tensor, beq: torch.Tensor,
+                   normals: torch.Tensor, h: torch.Tensor,
+                   seg_mask: torch.Tensor, rho_i: torch.Tensor,
+                   rho_e: torch.Tensor, basis: torch.Tensor, n_iters: int,
+                   sigma: float, alpha: float
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """The operator behind `admm_chunk` (its real implementation)."""
     args = (x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals, h, seg_mask,
             rho_i, rho_e, basis)
     _check(*args)
     if x.device.type == "cpu":
-        return admm_chunk_reference(*args, n_iters, sigma, alpha)
+        outs = admm_chunk_reference(*args, n_iters, sigma, alpha)
+        # an operator's outputs may not alias its inputs (n_iters = 0)
+        return tuple(o.clone() if o.untyped_storage().data_ptr()
+                     == i.untyped_storage().data_ptr() else o
+                     for o, i in zip(outs, args))
     if x.device.type != "cuda":
         raise ValueError(f"admm_chunk: no kernel for device {x.device}")
     outs = _launch(_library(), *args, n_iters, sigma, alpha, None)
     admm_chunk.launches += 1
     return outs
+
+
+@_admm_chunk_op.register_fake
+def _admm_chunk_fake(x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals, h,
+                     seg_mask, rho_i, rho_e, basis, n_iters, sigma, alpha):
+    _check(x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals, h, seg_mask,
+           rho_i, rho_e, basis)
+    return tuple(torch.empty_like(t) for t in (x, z, yh, yeh))
 
 
 def _launch(lib, x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals, h,
@@ -233,9 +283,6 @@ def phase_cycles(*args, n_iters: int, sigma: float, alpha: float):
     _launch(lib, *args, n_iters, sigma, alpha, prof)
     torch.cuda.synchronize(args[0].device)
     return names, prof.cpu()
-
-
-admm_chunk.launches = 0
 
 
 def admm_chunk_reference(x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals,

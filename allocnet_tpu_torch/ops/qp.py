@@ -14,8 +14,8 @@ x the (segment, axis, coefficient) stack, highest degree first.
 
 from __future__ import annotations
 
-import functools
 import math
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -141,10 +141,32 @@ def build_qp(cfg: QPConfig, state, hpolys, times, seg, device=None) -> QPData:
 # constant basis tensors
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
+_CONSTS: dict = {}
+_TRACED_CONSTS: dict = {}
+
+
 def consts(cfg: QPConfig, dtype: torch.dtype, device: torch.device):
     """Slot-equilibrated constant bases (B0, B1, B2, Bz3, Be3, Beo, fact,
-    Qhat): every matrix acts on s-scaled coefficients c'' = s * c'."""
+    Qhat): every matrix acts on s-scaled coefficients c'' = s * c'.
+
+    Cached per (cfg, dtype, device).  While `torch.export` traces, the
+    tensors made are the tracer's fakes: they are cached apart, for that
+    trace only, so that they never reach eager callers and the program
+    holds one copy of each."""
+    key = (cfg, dtype, torch.device(device))
+    mode = torch._guards.detect_fake_mode()
+    if mode is None:
+        if key not in _CONSTS:
+            _CONSTS[key] = _consts(cfg, dtype, device)
+        return _CONSTS[key]
+    hit = _TRACED_CONSTS.get(key)
+    if hit is None or hit[0]() is not mode:
+        hit = (weakref.ref(mode), _consts(cfg, dtype, device))
+        _TRACED_CONSTS[key] = hit
+    return hit[1]
+
+
+def _consts(cfg: QPConfig, dtype: torch.dtype, device: torch.device):
     o, D, R = cfg.order, cfg.D, cfg.res
     s = bases.slot_scales(D, o)
     B0, B1, B2 = (b / s for b in bases.sampled_bases(D, R))

@@ -22,8 +22,13 @@ What differs from the JAX module:
   B=1 `solved` flag, one device sync) where the JAX module uses an
   in-program `lax.cond`; the tick syncs anyway to read the advanced state;
 * `TickResult.rescue` records which stage of the ladder accepted the plan;
-* the AOT executable store (`save_aot`, `aot_path=`, the compilation
-  cache) and `onchip_tick_cost` are not ported.
+* the fast start (`enable_compilation_cache`, `Driver(cache_dir=,
+  aot_path=)`, `save_aot`) keeps prebuilt libraries, not serialized
+  programs: the port traces and compiles nothing, and what a fresh process
+  pays before its first tick is the `nvcc` build of the kernel and the
+  `g++` build of the native runtime;
+* `onchip_tick_cost` chains the ticks in a Python loop (no `lax.scan`)
+  that reads nothing back to the host until the last tick.
 
 Device state (the previous plan and its multipliers) stays on the
 driver's device; the host keeps a handful of scalars per tick.
@@ -33,7 +38,13 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
+import json
+import os
+import shutil
+import tempfile
 import time
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -42,8 +53,8 @@ import torch
 from allocnet_tpu_torch.config import AllocNetConfig, SolverConfig
 from allocnet_tpu_torch.models import packing
 from allocnet_tpu_torch.models.networks import bind
-from allocnet_tpu_torch.ops import admm, qp
-from allocnet_tpu_torch.planner import control, replan, trajectory
+from allocnet_tpu_torch.ops import admm, admm_chunk, qp
+from allocnet_tpu_torch.planner import control, native, replan, trajectory
 from allocnet_tpu_torch.planner import refine as refine_lib
 from allocnet_tpu_torch.utils.device import resolve_device
 
@@ -504,6 +515,62 @@ def make_cold_tick(net, cfg: AllocNetConfig, params, rate_hz: float = 10.0,
 
 
 # ---------------------------------------------------------------------------
+# fast start: prebuilt libraries
+# ---------------------------------------------------------------------------
+
+def enable_compilation_cache(cache_dir: str) -> None:
+    """Build the kernel (nvcc) and the native runtime (g++) into
+    `cache_dir` and load them from there: a directory kept between
+    processes builds each library once (the libraries are keyed by a hash
+    of their source and flags)."""
+    os.makedirs(cache_dir, exist_ok=True)
+    admm_chunk.set_build_dir(cache_dir)
+    native.set_build_dir(cache_dir)
+
+
+_AOT_LIBS = {"kernel": admm_chunk, "native": native}
+
+
+def _aot_manifest(cfg: AllocNetConfig, params: dict, device) -> dict:
+    """Compatibility fingerprint of a saved library set: the libraries are
+    valid for the same sources (their names carry the hashes), torch
+    version and card; the config repr and the params digest pin the
+    checkpoint the artefact flies (a stale artefact must not fly an old
+    network).  No kernel library on the CPU."""
+    h = hashlib.sha256()
+    for k, v in sorted(params.items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    return {"torch": torch.__version__,
+            "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+            "capability": (list(torch.cuda.get_device_capability(dev))
+                           if cuda else None),
+            "cfg": repr(cfg), "params_sha": h.hexdigest()[:16],
+            "kernel": admm_chunk.library_name() if cuda else None,
+            "native": native.library_name()}
+
+
+def _aot_dummy_args(cfg: AllocNetConfig, goal_dist: float = 5.0,
+                    device=None):
+    """B=1 inputs of the cold tick (state9, hpolys, seg) on a generous box
+    corridor around a straight segment: feasible, so a cold and a warm
+    tick run their whole path on it."""
+    S, F = cfg.qp.max_seg, cfg.qp.max_faces
+    hp = np.zeros((1, S, F, 4), np.float32)
+    box = np.array([[1, 0, 0, goal_dist + 2.0], [-1, 0, 0, 2.0],
+                    [0, 1, 0, 2.0], [0, -1, 0, 2.0],
+                    [0, 0, 1, 4.0], [0, 0, -1, 1.0]], np.float32)
+    hp[0, :2, :6] = box
+    st = np.zeros((1, 2, 3, 3), np.float32)
+    st[0, 1, 0, 0] = goal_dist
+    st[0, 1, 2, 0] = 1.0
+    t = lambda a: torch.as_tensor(a, device=device)
+    return t(st), t(hp), t(np.array([2]))
+
+
+# ---------------------------------------------------------------------------
 # host driver
 # ---------------------------------------------------------------------------
 
@@ -519,14 +586,23 @@ class Driver:
     segment, and a plan feasible at the samples can exceed the limit
     between them; 0.5% makes the flown plans carry the strict f64
     Bernstein certificate at the mission limits (certify=True checks
-    every accepted plan, outside the timed region)."""
+    every accepted plan, outside the timed region).
+
+    cache_dir: where the kernel and the native runtime are built and
+    loaded from (`enable_compilation_cache`).  aot_path: a directory that
+    `save_aot` wrote; when its manifest matches, its prebuilt libraries
+    are taken and `aot_loaded` is True, so the first tick builds nothing;
+    otherwise the libraries are built at first use, as without it."""
 
     def __init__(self, net, params, cfg: AllocNetConfig,
                  rate_hz: float = 10.0, telemetry_hz: float = 1000.0,
                  time_scale: float = 1.0, refine_steps: int = 0,
                  certify: bool = False, box_margin: float = 0.005,
-                 device=None):
+                 device=None, cache_dir: str | None = None,
+                 aot_path: str | None = None):
         self.device = resolve_device(device)
+        if cache_dir:
+            enable_compilation_cache(cache_dir)
         self.certify = certify
         # a copy on the driver's device: the caller's net stays where it is
         self.net = (copy.deepcopy(net) if params is None
@@ -540,24 +616,67 @@ class Driver:
         ct = self.cfg_tick
         self._cold = make_cold_tick(self.net, ct, None, rate_hz, time_scale)
         self._tick = make_combined_tick(ct, rate_hz, refine_steps)
+        self.aot_loaded = aot_path is not None and self._load_aot(aot_path)
+
+    # -- prebuilt libraries (fast cold start) ------------------------------
+
+    def save_aot(self, path: str) -> dict:
+        """Run a cold and a warm tick (`prewarm`: builds and launches the
+        kernel on a card), then save the built kernel library (none on the
+        CPU), the built native runtime and a manifest (`_aot_manifest`)
+        into `path`.  A later process constructed with aot_path=<path>
+        builds neither.  Returns {library kind: bytes}."""
+        os.makedirs(path, exist_ok=True)
+        self.prewarm()
+        libs = {"native": native.build()}
+        if self.device.type == "cuda":
+            libs["kernel"] = admm_chunk.build()["path"]
+        sizes = {}
+        for kind, src in libs.items():
+            dst = os.path.join(path, os.path.basename(src))
+            shutil.copyfile(src, dst)
+            sizes[kind] = os.path.getsize(dst)
+        with open(os.path.join(path, "manifest.json"), "w") as f:
+            json.dump(_aot_manifest(self.cfg_tick, self.net.state_dict(),
+                                    self.device), f, indent=1)
+        return sizes
+
+    def _load_aot(self, path: str) -> bool:
+        """Take the libraries that `save_aot` wrote into the build
+        directories.  False (they are built at first use) when the manifest
+        is missing or does not match this driver; a matching manifest
+        whose library file is missing raises."""
+        try:
+            with open(os.path.join(path, "manifest.json")) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError):
+            return False
+        if manifest != _aot_manifest(self.cfg_tick, self.net.state_dict(),
+                                     self.device):
+            return False
+        for kind, mod in _AOT_LIBS.items():
+            if manifest[kind] is None:
+                continue
+            dst = mod.BUILD_DIR / manifest[kind]
+            if dst.exists():
+                continue
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=dst.parent)
+            os.close(fd)
+            try:
+                shutil.copyfile(Path(path) / manifest[kind], tmp)
+                os.replace(tmp, dst)          # atomic, as the builds
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+        return True
 
     def prewarm(self, goal_dist: float = 5.0):
-        """Run a cold and a warm tick on a dummy box corridor: builds the
-        kernel and warms the allocator and cuDNN before the first real
-        tick."""
-        S, F = self.cfg.qp.max_seg, self.cfg.qp.max_faces
-        hp = np.zeros((1, S, F, 4), np.float32)
-        # a generous box around the segment keeps the dummy feasible, so
-        # both ticks run their whole path
-        box = np.array([[1, 0, 0, goal_dist + 2.0], [-1, 0, 0, 2.0],
-                        [0, 1, 0, 2.0], [0, -1, 0, 2.0],
-                        [0, 0, 1, 4.0], [0, 0, -1, 1.0]], np.float32)
-        hp[0, :2, :6] = box
-        st = np.zeros((1, 2, 3, 3), np.float32)
-        st[0, 1, 0, 0] = goal_dist
-        st[0, 1, 2, 0] = 1.0
-        t = lambda a: torch.as_tensor(a, device=self.device)
-        _, _, _, adv = self._cold(t(st), t(hp), t(np.array([2])))
+        """Run a cold and a warm tick on a dummy box corridor
+        (`_aot_dummy_args`): builds the kernel and warms the allocator and
+        cuDNN before the first real tick."""
+        args = _aot_dummy_args(self.cfg, goal_dist, self.device)
+        _, _, _, adv = self._cold(*args)
         with torch.no_grad():
             self._tick(adv.state9, adv.hpolys, adv.seg, adv.prev)
         if self.device.type == "cuda":
@@ -668,3 +787,64 @@ class Driver:
             if realtime and r.latency_s < period:
                 time.sleep(period - r.latency_s)
         return st, results
+
+
+# ---------------------------------------------------------------------------
+# on-chip tick cost
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def _chain_ticks(net, cfg: AllocNetConfig, state9, hpolys, seg,
+                 n_ticks: int, dt: float, time_scale: float,
+                 refine_steps: int):
+    """A cold tick, then n_ticks - 1 warm ticks (the fast solve, no rescue
+    ladder) fed back on the device; after arrival a tick holds the done
+    state.  Nothing is read back to the host.  Returns (solved (n_ticks,
+    B) bool, each tick's flag or'ed with done before it; done (B,))."""
+    solved0, _, _, adv = _cold_tick(net, cfg, dt, time_scale, state9,
+                                    hpolys, seg)
+    st, hp, sg, prev, done = (adv.state9, adv.hpolys, adv.seg, adv.prev,
+                              adv.done)
+    flags = [solved0]
+    for _ in range(n_ticks - 1):
+        solved, _, _, a = _warm_tick(cfg, dt, refine_steps, False, st, hp,
+                                     sg, prev)
+        keep = lambda new, old: _where_b(done, old, new)
+        st, hp = keep(a.state9, st), keep(a.hpolys, hp)
+        sg = torch.where(done, sg, a.seg)
+        prev = PlanState(
+            coeffs=keep(a.prev.coeffs, prev.coeffs),
+            times=keep(a.prev.times, prev.times),
+            have_prev=torch.where(done, prev.have_prev, a.prev.have_prev),
+            duals={k: keep(a.prev.duals[k], prev.duals[k])
+                   for k in prev.duals})
+        flags.append(solved | done)
+        done = done | a.done
+    return torch.stack(flags), done
+
+
+def onchip_tick_cost(net, params, cfg: AllocNetConfig, state9, hpolys, seg,
+                     n_ticks: int = 50, rate_hz: float = 10.0,
+                     time_scale: float = 1.0, refine_steps: int = 0,
+                     device=None):
+    """Per-tick cost of the ticks alone: a cold plan and n_ticks - 1 warm
+    ticks chained on the device (`_chain_ticks`), one host read at the
+    end; the host's per-tick work of `Driver.tick` (state packing,
+    telemetry, certificates) is left out.  state9 (B, 2, 3, 3), hpolys
+    (B, S, F, 4), seg (B,); `params` as for `Driver`.  Runs on the card
+    unless `device` says otherwise.  Returns (seconds per tick, solved
+    fraction over the ticks, with a tick after arrival counted solved,
+    arrived fraction)."""
+    dev = resolve_device(device)
+    net = (copy.deepcopy(net) if params is None
+           else bind(net, params)).to(dev).eval()
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    args = (t(state9), t(hpolys), t(seg, torch.long))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    solved, done = _chain_ticks(net, cfg, *args, n_ticks, 1.0 / rate_hz,
+                                time_scale, refine_steps)
+    frac = float(solved.float().mean())               # the one host read
+    wall = time.perf_counter() - t0
+    return wall / n_ticks, frac, float(done.float().mean())

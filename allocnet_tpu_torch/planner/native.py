@@ -32,21 +32,35 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
 
+def library_name() -> str:
+    """File name of the built runtime, keyed by a hash of the source and
+    the flags."""
+    key = hashlib.sha256(SOURCE.read_bytes()
+                         + " ".join(CXX_FLAGS).encode()).hexdigest()
+    return f"allocnet_native_{key[:16]}.so"
+
+
+def set_build_dir(path) -> None:
+    """Build into (and load from) `path` from now on."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    build.cache_clear()
+    _load.cache_clear()
+
+
 @functools.cache
 def build() -> str:
     """Compile the runtime into BUILD_DIR unless that library exists;
     returns its path.  Raises RuntimeError when g++ is missing or fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / library_name()
+    if lib.exists():
+        return str(lib)
     cxx = shutil.which("g++")
     if cxx is None:
         raise RuntimeError("g++ not found: the native runtime cannot be "
                            "built (build_map(native=False) takes the "
                            "Python RRT)")
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"allocnet_native_{key}.so"
-    if lib.exists():
-        return str(lib)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
@@ -83,6 +97,16 @@ def _load() -> ctypes.CDLL:
     lib.cloud_crop_windows.restype = i
     lib.cloud_crop_windows.argtypes = [d, i, d, d, i, f64, d, d, i]
     return lib
+
+
+def available() -> bool:
+    """Whether the runtime builds (g++) and loads here.  It only reports:
+    callers that need the runtime call it and get the build's error."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _dp(a: np.ndarray):

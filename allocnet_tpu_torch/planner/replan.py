@@ -66,7 +66,6 @@ def init_state(batch: int, cfg: AllocNetConfig, device=None) -> ReplanState:
         have_prev=torch.zeros((batch,), dtype=torch.bool, device=dev))
 
 
-@torch.no_grad()
 def replan_step(net, params, cfg: AllocNetConfig, state, hpolys, seg,
                 prev: ReplanState, time_scale: float = 1.0,
                 warm: bool = True, refine_steps: int = 0, device=None):
@@ -82,8 +81,16 @@ def replan_step(net, params, cfg: AllocNetConfig, state, hpolys, seg,
     otherwise.
 
     Returns (times, coeffs, solved, new ReplanState)."""
-    dev = resolve_device(device)
-    net = bind(net, params)
+    with torch.no_grad():
+        return step(bind(net, params), cfg, state, hpolys, seg, prev,
+                    time_scale, warm, refine_steps, resolve_device(device))
+
+
+def step(net, cfg: AllocNetConfig, state, hpolys, seg, prev: ReplanState,
+         time_scale: float, warm: bool, refine_steps: int, dev):
+    """`replan_step`'s body for a net that holds its weights, on device
+    `dev`, without the no_grad around it (models/export.save_replan
+    traces it under its own)."""
     dtype = prev.coeffs.dtype
     state = torch.as_tensor(state, dtype=dtype, device=dev)
     hpolys = torch.as_tensor(hpolys, dtype=dtype, device=dev)

@@ -68,6 +68,37 @@ def quintic_time_bounds(waypts: np.ndarray, vmax: float, amax: float) -> np.ndar
                       np.sqrt(5.774 * d / amax).max(axis=1))
 
 
+def corridor_time_lower_bounds(hpolys: np.ndarray, state: np.ndarray,
+                               seg: np.ndarray, vmax: float,
+                               amax: float) -> np.ndarray:
+    """Per-segment time lower bounds for use_time_factor mode, from the
+    corridor's junction waypoints (the reference's getT_lbs over
+    get_inner_pts, min_traj_opt.py:195-276).  Host-side: the junction
+    interiors come from ops/lp.find_interior in float64 on the CPU.
+
+    Returns (B, S) with zeros on padded segments."""
+    import torch
+
+    from allocnet_tpu_torch.ops import lp
+
+    B, S = hpolys.shape[:2]
+    out = np.zeros((B, S))
+    for b in range(B):
+        L = int(seg[b])
+        waypts = [state[b, 0, :, 0]]
+        if L > 1:
+            inter = np.zeros((L - 1, 2 * hpolys.shape[2], 4))
+            for i in range(L - 1):
+                inter[i] = np.concatenate([hpolys[b, i], hpolys[b, i + 1]])
+            mask = np.linalg.norm(inter[:, :, :3], axis=2) > 1e-6
+            pt, _ = lp.find_interior(torch.as_tensor(inter, dtype=torch.float64),
+                                     torch.as_tensor(mask, dtype=torch.float64))
+            waypts.extend(pt.numpy())
+        waypts.append(state[b, 1, :, 0])
+        out[b, :L] = time_lower_bounds(np.asarray(waypts), vmax, amax)
+    return out
+
+
 def random_scenarios(
     cfg: QPConfig,
     batch: int,

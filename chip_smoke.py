@@ -12,15 +12,26 @@ voxel map from a point cloud, plans two missions' corridors (native
 Informed RRT*, FIRI, the fused corridor; held against the CPU's) and flies
 them with the 10 Hz receding-horizon driver (cold, warm and rescue ticks;
 the kernel held against its plain version on each tick batch, the first
-cold tick against the CPU path), and prints one JSON line per kernel and
-a final status line.
+cold tick against the CPU path).  Then the application layer at DEPLOY:
+generates a certified dataset from a synthetic point cloud (PCD write,
+read and crop; corridors and certification held against the CPU's),
+exports the net as TorchScript and the replanning step as a
+`torch.export` program (held against the eager ones), starts two fresh
+processes to their first tick with and without the prebuilt libraries of
+`Driver.save_aot`, chains 20 ticks on the card (`onchip_tick_cost`), runs
+the solve-scaling sweep on the card and holds the kernel against its
+plain version at the certify shape and at order 3 (min-jerk).  Prints one
+JSON line per kernel and a final status line.
 
     python3 chip_smoke.py
 
+(`python3 chip_smoke.py --first-tick ...` is the fast-start phase's child
+process.)
+
 Needs a CUDA device, the CUDA toolkit (nvcc) and g++; exits non-zero
 without them, and on any failed check.  Writes nothing but the kernel and
-runtime builds in allocnet_tpu_torch/_build/.  Imports neither JAX nor the
-JAX package.
+runtime builds in allocnet_tpu_torch/_build/ and temporary directories.
+Imports neither JAX nor the JAX package, nor h5py or matplotlib.
 """
 
 import importlib.util
@@ -56,6 +67,23 @@ CORRIDOR_TOL = 1e-3       # card vs CPU corridor, of the largest row entry
 # HBM3 bandwidth, for the kernel's bound
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# application phases: a 40 x 40 x 4 m cloud of four random_obstacle_map
+# tiles, cropped to 20 x 20 x 4 m; the CLI's default sample count
+DATAGEN_SEED = 100
+DATAGEN_CROP = (20.0, 20.0, 4.0)
+DATAGEN_N = 256
+# card vs CPU certify flags: every sample the card keeps passes the
+# solved test again in float64 on the CPU; one the card drops and the CPU
+# keeps must have a CPU flag decided by rounding, i.e. one that flips
+# when the sample's times move by 1e-6 of themselves (a random sign per
+# time) in one of WITNESS_DRAWS draws; as many samples where they agree
+# are drawn as a control, and the witness must leave at least half of
+# those unflipped
+WITNESS_REL = 1e-6
+WITNESS_DRAWS = 32
+WITNESS_SEED = 7
+ONCHIP_TICKS = 20
+JERK_B = 256
 
 
 def phase(name, t0):
@@ -108,10 +136,499 @@ def chunk_work(cfg, n_iters, aeq, normals, seg_mask):
     return flops, nbytes
 
 
+def kernel_check(k1, ref, a, what):
+    """The kernel against its plain version on the recorded arguments `a`
+    (the kernel's tensors, n_iters, sigma, alpha): returns each output's
+    max difference over the plain version's largest entry; fails on a
+    non-finite output or above CHUNK_TOL."""
+    import torch
+    got = k1(*a)
+    torch.cuda.synchronize()
+    want = ref(*a)
+    errs = []
+    for name, g, w in zip(("x", "z", "yh", "yeh"), got, want):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"kernel {name} not finite on the {what} batch")
+        errs.append(float((g - w).abs().max())
+                    / max(1.0, float(w.abs().max())))
+    if max(errs) > CHUNK_TOL:
+        fail(f"admm_chunk disagrees with its plain version on the {what} "
+             f"batch: {max(errs):.3e} of the largest entry")
+    return errs
+
+
+def shape_numbers(admm_chunk, qcfg, a, what, reps=20):
+    """Kernel vs plain (`kernel_check`), then the kernel's and the plain
+    version's ms per launch and the bound (`chunk_work`) on the recorded
+    arguments `a`."""
+    k1, ref = admm_chunk.admm_chunk, admm_chunk.admm_chunk_reference
+    errs = kernel_check(k1, ref, a, what)
+    ms = cuda_ms(lambda: k1(*a), reps=reps)
+    pms = cuda_ms(lambda: ref(*a), reps=3)
+    fl, nb = chunk_work(qcfg, a[14], admm_chunk.aeq_dense(
+        a[5], a[6], qcfg.n_var), a[8], a[10])
+    bms = max(fl / PEAK_F32_FLOPS, nb / PEAK_BYTES) * 1e3
+    print(f"  admm_chunk on the {what} batch (B={a[0].shape[0]}, {a[14]} "
+          f"iterations, D={qcfg.D}): kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+          f"bound {bms:.5f} ms ({fl:.3e} FLOP, {nb:.3e} B); max diff / "
+          f"max|plain| of x z yh yeh " + " ".join(f"{e:.3e}" for e in errs))
+    return {"B": int(a[0].shape[0]), "iters": int(a[14]), "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "max_rel_err": max(errs)}
+
+
+def first_tick(npz, cache_dir, aot_dir=None):
+    """A fresh process's first tick (the fast-start phase runs this in a
+    subprocess): build the Driver at DEPLOY with the shipped seq5 net,
+    building into the empty `cache_dir`, from the prebuilt libraries of
+    `aot_dir` when given; run the first cold tick on the mission in `npz`;
+    then get the native runtime.  Prints one JSON line: seconds to the
+    first tick, the compilers it ran, build seconds, aot_loaded; writes
+    the tick's plan next to `npz`."""
+    t_start = time.perf_counter()
+    ran = {}                  # compiler -> seconds it ran
+    real_run = subprocess.run
+
+    def run(cmd, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real_run(cmd, *a, **k)
+        finally:
+            name = os.path.basename(str(cmd[0]))
+            ran[name] = ran.get(name, 0.0) + time.perf_counter() - t0
+
+    subprocess.run = run
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from allocnet_tpu_torch import config
+    from allocnet_tpu_torch.models import weights
+    from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
+    from allocnet_tpu_torch.ops import admm_chunk
+    from allocnet_tpu_torch.planner import driver, native
+
+    m = np.load(npz)
+    drv = driver.Driver(ConvLSTMAllocNet(5, 256, token_thresh=0.5),
+                        weights.load_params(os.path.join(ROOT, NET)),
+                        config.DEPLOY, rate_hz=10.0, cache_dir=cache_dir,
+                        aot_path=aot_dir)
+    st = drv.reset(m["start"], m["goal"], m["hpolys"], int(m["seg"]))
+    r = drv.tick(st)
+    torch.cuda.synchronize()
+    to_tick = time.perf_counter() - t_start
+    tick_builds = dict(ran)
+    native.build()            # the front end's runtime, after the tick
+    np.savez(npz.replace(".npz", f"_{'aot' if aot_dir else 'build'}.npz"),
+             times=r.times, pos=r.state.pos, vel=r.state.vel,
+             acc=r.state.acc,
+             coeffs=r.state.prev.coeffs.cpu().numpy())
+    print(json.dumps({"to_first_tick_s": to_tick, "solved": r.solved,
+                      "builds_before_tick_s": tick_builds,
+                      "builds_s": ran, "aot_loaded": drv.aot_loaded,
+                      "launches": admm_chunk.admm_chunk.launches}))
+    return 0
+
+
+def solved_in_f64(dcfg, batch, sol):
+    """(B,) bool: whether a certify solve's solutions `sol` (physical
+    coefficients and multipliers, any device) pass the solver's solved
+    test when re-evaluated in float64 on the CPU against the QP of the
+    same float32 inputs."""
+    import numpy as np
+    from allocnet_tpu_torch import config
+    from allocnet_tpu_torch.ops import admm, qp
+
+    f64 = lambda a: a.astype(np.float32).astype(np.float64)
+    d = qp.build_qp(dcfg.qp, f64(batch.state), f64(batch.hpolys),
+                    f64(batch.times), batch.seg, device="cpu")
+    x = qp.scale_coeffs(d, sol.coeffs.cpu().double())
+    nu = sol.nu.cpu().double()
+    lam = qp.tree_flat({k: v.cpu().double() for k, v in sol.lam.items()},
+                       admm.INEQ_KEYS)
+    beq = qp.tree_flat(qp.eq_rhs(d), admm.EQ_KEYS)
+    h = qp.tree_flat(qp.ineq_rhs(d), admm.INEQ_KEYS)
+    pri, dua, pri_sc, dua_sc = admm._full_residuals(d, x, nu, lam, beq, h,
+                                                    with_scales=True)
+    s = config.CERTIFY_SOLVER
+    obj = qp.objective(d, x)
+    return ((pri < s.eps_abs * 10 + s.eps_rel * 10 * pri_sc)
+            & (dua < s.eps_abs * 10 + s.eps_rel * 10 * dua_sc)
+            & (obj < s.obj_max) & (obj > s.obj_min)).numpy()
+
+
+def rounding_witness(dcfg, batch, flags_gpu, flags_cpu, dev):
+    """Each sample whose certify flag differs between the card and the CPU,
+    and as many where they agree (the control), certified again in
+    WITNESS_DRAWS rows with its times moved by WITNESS_REL of themselves
+    (a random sign per time), on the CPU and on the card in one batch
+    each.  Prints and returns (disagreeing samples, control samples, CPU
+    flips per sample, card flips per sample)."""
+    import numpy as np
+    from allocnet_tpu_torch.train import datagen
+    from allocnet_tpu_torch.utils import scenarios
+
+    wrng = np.random.default_rng(WITNESS_SEED)
+    bad = np.nonzero(flags_gpu != flags_cpu)[0]
+    ctrl = np.sort(wrng.choice(np.nonzero(flags_gpu == flags_cpu)[0],
+                               len(bad), replace=False))
+    idx = np.concatenate([bad, ctrl])
+    rows = np.repeat(idx, WITNESS_DRAWS)
+    signs = wrng.choice([-1.0, 1.0], size=batch.times[rows].shape)
+    wsc = scenarios.ScenarioBatch(
+        state=batch.state[rows], hpolys=batch.hpolys[rows],
+        times=batch.times[rows] * (1.0 + WITNESS_REL * signs),
+        seg=batch.seg[rows])
+    flips = {}
+    for side, d, ref in (("CPU", "cpu", flags_cpu),
+                         ("card (not gated)", dev, flags_gpu)):
+        f = datagen.certified(dcfg, wsc, device=d).reshape(
+            len(idx), WITNESS_DRAWS)
+        flips[side] = (f != ref[idx][:, None]).sum(1)
+        print(f"  rounding witness on the {side}, {WITNESS_DRAWS} draws of "
+              f"the times x (1 +- {WITNESS_REL:g}): flips of each "
+              f"disagreeing sample " + ", ".join(
+                  f"{b}: {n}" for b, n in zip(bad, flips[side][:len(bad)]))
+              + "; of each control sample " + ", ".join(
+                  f"{b}: {n}" for b, n in zip(ctrl, flips[side][len(bad):])))
+    return bad, ctrl, flips["CPU"], flips["card (not gated)"]
+
+
+def application_phases(dev, drv, params, cold_inputs, mission):
+    """The application layer at DEPLOY: dataset generation from a point
+    cloud, the exported artefacts, the fast start, the on-chip tick cost,
+    the scaling sweep and one min-jerk batch.  Returns the kernel's
+    launches by path and its numbers at the certify and min-jerk shapes."""
+    import numpy as np
+    import torch
+    from allocnet_tpu_torch import config
+    from allocnet_tpu_torch.config import QPConfig, SolverConfig
+    from allocnet_tpu_torch.models import export, packing
+    from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
+    from allocnet_tpu_torch.ops import admm, admm_chunk, qp
+    from allocnet_tpu_torch.parallel import scaling
+    from allocnet_tpu_torch.planner import driver, planner, replan, sfc
+    from allocnet_tpu_torch.train import datagen
+    from allocnet_tpu_torch.utils import pcd, scenarios, timing
+
+    k1, launch = admm_chunk.admm_chunk, admm_chunk._launch
+    dcfg = config.DEPLOY
+    launches, shapes = {}, {}
+
+    # ---- 9. datagen: PCD -> crops -> corridors -> certify ----------------
+    t0 = time.perf_counter()
+    tiles = [datagen.random_obstacle_map(DATAGEN_SEED + k, EXTENT)
+             + np.array([20.0 * (k % 2), 20.0 * (k // 2), 0.0])
+             for k in range(4)]
+    cloud = np.concatenate(tiles)
+    with tempfile.TemporaryDirectory() as d:
+        pcd.write_pcd(os.path.join(d, "cloud.pcd"), cloud)
+        back = pcd.read_pcd(os.path.join(d, "cloud.pcd"))
+    if back.shape != cloud.shape or np.abs(back - cloud).max() > 1e-5:
+        fail("the PCD round trip changed the cloud")
+    min_pts = min(len(t) for t in tiles)
+    crops = pcd.crop_segments(back, extent=DATAGEN_CROP, stride=(10.0, 10.0),
+                              min_points=min_pts)
+    print(f"datagen: cloud of {len(cloud)} points (4 tiles, seeds "
+          f"{DATAGEN_SEED}-{DATAGEN_SEED + 3}); PCD round trip max diff "
+          f"{np.abs(back - cloud).max():.2e}; {len(crops)} crops of "
+          f"{DATAGEN_CROP} m with >= {min_pts} points: "
+          + ", ".join(f"{np.round(c['origin'], 2).tolist()} "
+                      f"({len(c['points'])})" for c in crops))
+    if not crops:
+        fail("no crop holds a tile's points")
+    rec = {"batch": None, "args": None, "cands": [], "plans": []}
+    certified, plan_batch = datagen.certified, planner.plan_corridors_batch
+
+    def rec_certified(cfg, sc, device=None):
+        rec["batch"] = rec["batch"] or sc
+        return certified(cfg, sc, device)
+
+    def rec_plans(pmap, starts, goals, cfg, seed=0, **k):
+        out = plan_batch(pmap, starts, goals, cfg, seed=seed, **k)
+        rec["cands"].append((starts, goals, seed))
+        rec["plans"].append(out)
+        return out
+
+    def rec_launch(lib, *a):
+        if rec["args"] is None:
+            rec["args"] = [t.clone() if torch.is_tensor(t) else t
+                           for t in a[:17]]
+        return launch(lib, *a)
+
+    datagen.certified, planner.plan_corridors_batch = rec_certified, rec_plans
+    admm_chunk._launch = rec_launch
+    timer = timing.PhaseTimer()
+    torch.cuda.synchronize()
+    k1.launches = 0
+    t1 = time.perf_counter()
+    gen = datagen.generate(dcfg, DATAGEN_N, points=crops[0]["points"],
+                           extent=DATAGEN_CROP, seed=DATAGEN_SEED,
+                           device=dev, timer=timer)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    launches["datagen"] = k1.launches
+    datagen.certified, planner.plan_corridors_batch = certified, plan_batch
+    admm_chunk._launch = launch
+    n_cand = sum(len(c[0]) for c in rec["cands"])
+    print(f"  generate(DEPLOY, n_samples={DATAGEN_N}) on crop 0: {gen_s:.3f} "
+          f"s; {n_cand} candidates drawn, {len(rec['batch'].seg)} with a "
+          f"corridor went to certify, {len(gen.seg)} kept; stages ms "
+          + ", ".join(f"{k} {v['total_s'] * 1e3:.1f}"
+                      for k, v in timer.summary().items())
+          + f"; admm_chunk launches {launches['datagen']}")
+    if len(gen.seg) == 0 or not np.isfinite(gen.times).all():
+        fail("generate kept no sample or gave non-finite times")
+    if launches["datagen"] != config.CERTIFY_SOLVER.n_chunks:
+        fail(f"certify launched admm_chunk {launches['datagen']} times")
+    shapes["certify"] = shape_numbers(admm_chunk, dcfg.qp, rec["args"],
+                                      "certify")
+    flags_gpu = datagen.certified(dcfg, rec["batch"], device=dev)
+    flags_cpu = datagen.certified(dcfg, rec["batch"], device="cpu")
+    agree = float((flags_gpu == flags_cpu).mean())
+    print(f"  certify flags, card vs CPU plain path: agree on "
+          f"{int((flags_gpu == flags_cpu).sum())} of {len(flags_cpu)} "
+          f"({agree:.4f}); kept {int(flags_gpu.sum())} / {int(flags_cpu.sum())}")
+
+    def solve(sc, device):
+        f32 = np.float32
+        data = qp.build_qp(dcfg.qp, sc.state.astype(f32),
+                           sc.hpolys.astype(f32), sc.times.astype(f32),
+                           sc.seg, device=device)
+        return admm.solve_qp(data, config.CERTIFY_SOLVER)
+    # what the card keeps is solved: its solutions pass the solved test
+    # again in float64 on the CPU
+    sols = {dev: solve(rec["batch"], dev)}
+    again = sols[dev].solved.cpu().numpy()
+    ok64 = solved_in_f64(dcfg, rec["batch"], sols[dev])
+    print(f"  card certify run again on the same batch: flags identical "
+          f"{bool((again == flags_gpu).all())}; of its {int(again.sum())} "
+          f"kept samples {int(ok64[again].sum())} pass the solved test "
+          f"re-evaluated in float64 on the CPU")
+    if (again != flags_gpu).any():
+        fail("the card's certify flags changed between two runs")
+    if not ok64[again].all():
+        fail(f"certify samples {np.nonzero(again & ~ok64)[0].tolist()} are "
+             f"kept on the card and fail the solved test in float64")
+    if agree < 1.0:
+        # what the disagreeing samples look like on each side
+        sols["cpu"] = solve(rec["batch"], "cpu")
+        for b in np.nonzero(flags_gpu != flags_cpu)[0]:
+            print(f"    sample {b} (seg {rec['batch'].seg[b]}): " + "; ".join(
+                f"{'card' if d != 'cpu' else 'CPU'} solved "
+                f"{bool(s_.solved[b])} polished {bool(s_.polished[b])} "
+                f"pri_rel {float(s_.pri_rel[b]):.3e} dua_rel "
+                f"{float(s_.dua_rel[b]):.3e} obj {float(s_.obj[b]):.5f}"
+                for d, s_ in sols.items()))
+            for s_ in sols.values():
+                if not bool(torch.isfinite(s_.coeffs[b]).all()):
+                    fail(f"certify sample {b} disagrees and one side's "
+                         f"coefficients are not finite")
+        # a sample the card drops and the CPU keeps must be one whose CPU
+        # flag is decided by rounding (one the card keeps is held by the
+        # float64 test above)
+        bad, ctrl, flips, _ = rounding_witness(
+            dcfg, rec["batch"], flags_gpu, flags_cpu, dev)
+        missed = bad[(flips[:len(bad)] == 0) & ~flags_gpu[bad]]
+        if len(missed):
+            fail(f"certify samples {missed.tolist()} are dropped on the card "
+                 f"and kept on the CPU under every perturbation of the times")
+        if 2 * int((flips[len(bad):] > 0).sum()) > len(ctrl):
+            fail("the rounding witness flips most of the control samples")
+    starts, goals, seed = rec["cands"][0]
+    n_c = min(8, len(starts))
+    pmap_c = planner.build_map(crops[0]["points"], np.zeros(3),
+                               np.asarray(DATAGEN_CROP), device="cpu")
+    cpu_plans = plan_batch(pmap_c, starts[:n_c], goals[:n_c], dcfg,
+                           seed=seed, device="cpu")
+    worst = 0.0
+    for b, (g, c) in enumerate(zip(rec["plans"][0][:n_c], cpu_plans)):
+        if g.ok != c.ok or g.seg != c.seg:
+            fail(f"datagen candidate {b}: card corridor ok {g.ok} seg "
+                 f"{g.seg}, CPU ok {c.ok} seg {c.seg}")
+        if g.ok:
+            scale = max(1.0, float(np.abs(c.hpolys).max()))
+            worst = max(worst, max(sfc.face_set_distance(
+                g.hpolys[i], c.hpolys[i]) for i in range(g.seg)) / scale)
+    print(f"  corridors of the first {n_c} candidates, card vs CPU: same ok "
+          f"and seg, faces within {worst:.3e} of the largest entry")
+    if worst > CORRIDOR_TOL:
+        fail("datagen corridors on the card differ from the CPU's")
+    phase("datagen", t0)
+
+    # ---- 10. export: TorchScript net, exported replan step ---------------
+    t0 = time.perf_counter()
+    net = ConvLSTMAllocNet(5, 256, token_thresh=0.5)
+    net.load_state_dict(params)
+    net = net.to(dev).eval()
+    sc = scenarios.random_scenarios(dcfg.qp, 16, seed=SEED, min_seg=1)
+    xs = packing.pack_state(torch.as_tensor(sc.state, dtype=torch.float32,
+                                            device=dev))
+    xh = packing.pack_hpolys(torch.as_tensor(sc.hpolys, dtype=torch.float32,
+                                             device=dev))
+    with tempfile.TemporaryDirectory() as d:
+        export.save(d, net, batch=16, seq_len=5)
+        ts_net = export.load(d)
+        with torch.no_grad():
+            got, want = ts_net(xs, xh), net(xs, xh)
+        ts_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        t1 = time.perf_counter()
+        export.save_replan(d, net, dcfg, batch=1)
+        exp_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        prog = export.load_replan(d)
+        load_s = time.perf_counter() - t1
+        size = os.path.getsize(os.path.join(d, "replan.pt2"))
+    print(f"export: TorchScript seq5 net, times and tokens vs eager on the "
+          f"card {ts_err:.3e}; replan step exported in {exp_s:.1f} s, "
+          f"loaded in {load_s:.1f} s ({size} bytes)")
+    if ts_err > 1e-6:
+        fail("the TorchScript net differs from the eager net")
+    # the first mission's cold inputs: with no previous plan, then warm
+    # from the driver's cold-tick plan; and the first of the 16 random
+    # scenarios above that the eager step solves, so that a solved,
+    # polished plan is compared too
+    st9, hp, sg = cold_inputs
+    with torch.no_grad():
+        c_solved, c_plan = drv._cold(st9, hp, sg)[:2]
+    none1 = replan.init_state(1, dcfg, device=dev)
+    cases = [("no previous plan", (st9, hp, sg), none1),
+             (f"warm from the cold tick's plan (solved {bool(c_solved[0])})",
+              (st9, hp, sg), replan.ReplanState(c_plan.contiguous(),
+                                                c_solved))]
+    t32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    for r in range(len(sc.seg)):
+        one = (t32(sc.state[r:r + 1]), t32(sc.hpolys[r:r + 1]),
+               torch.as_tensor(sc.seg[r:r + 1], device=dev))
+        if bool(replan.replan_step(net, None, dcfg, *one, none1,
+                                   device=dev)[2][0]):
+            cases.append((f"random scenario {r} (seed {SEED}), no previous "
+                          f"plan", one, none1))
+            break
+    else:
+        fail("the replan step solves none of the 16 random scenarios")
+    launches["replan_export"] = 0
+    n_solved = 0
+    for name, (st9, hp, sg), prev in cases:
+        torch.cuda.synchronize()
+        k1.launches = 0
+        out = prog(st9, hp, sg.to(torch.int32), prev.coeffs, prev.have_prev)
+        torch.cuda.synchronize()
+        n_launch = k1.launches
+        launches["replan_export"] += n_launch
+        eager = replan.replan_step(net, None, dcfg, st9, hp, sg, prev,
+                                   device=dev)
+        n_solved += int(bool(out[2][0]) and bool(eager[2][0]))
+        c_p, c_e = out[1].cpu().numpy(), eager[1].cpu().numpy()
+        rp_err = float(np.abs(c_p - c_e).max() / max(1.0, np.abs(c_e).max()))
+        print(f"  program vs eager replan_step, {name}: solved "
+              f"{bool(out[2][0])} / {bool(eager[2][0])}, coefficients "
+              f"{rp_err:.3e} of the largest; admm_chunk launches {n_launch}")
+        if (bool(out[2][0]) != bool(eager[2][0]) or rp_err > 1e-6
+                or not np.isfinite(c_p).all()):
+            fail("the exported replan step differs from the eager one")
+        if n_launch < 1:
+            fail("the exported replan step did not launch admm_chunk")
+    if n_solved == 0:
+        fail("no compared replan step solved")
+    phase("export", t0)
+
+    # ---- 11. fast start: prebuilt libraries, first tick in a new process --
+    t0 = time.perf_counter()
+    start, goal, _, cp = mission
+    with tempfile.TemporaryDirectory() as d:
+        aot = os.path.join(d, "aot")
+        sizes = drv.save_aot(aot)
+        npz = os.path.join(d, "mission.npz")
+        np.savez(npz, start=start, goal=cp.route[-1], hpolys=cp.hpolys,
+                 seg=cp.seg)
+        runs = {}
+        for kind, extra in (("aot", [aot]), ("build", [])):
+            t1 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--first-tick",
+                 npz, os.path.join(d, f"cache_{kind}"), *extra],
+                capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t1
+            if res.returncode != 0:
+                fail(f"the {kind} first-tick process failed:\n"
+                     f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+            runs[kind] = json.loads(res.stdout.strip().splitlines()[-1])
+            runs[kind]["process_s"] = wall
+            runs[kind]["plan"] = dict(np.load(npz.replace(
+                ".npz", f"_{kind}.npz")))
+    for kind, r in runs.items():
+        print(f"fast_start: {kind}: {r['process_s']:.2f} s process wall, "
+              f"{r['to_first_tick_s']:.2f} s to the first tick (solved "
+              f"{r['solved']}); compilers run before the tick "
+              f"{r['builds_before_tick_s']}, in all {r['builds_s']} (s); "
+              f"aot_loaded {r['aot_loaded']}; admm_chunk launches "
+              f"{r['launches']}")
+    print(f"  artefact: {sizes} bytes")
+    a, b = runs["aot"], runs["build"]
+    if not a["aot_loaded"] or a["builds_s"] or b["aot_loaded"]:
+        fail("the prebuilt-library process built or did not load them")
+    if set(b["builds_s"]) != {"nvcc", "g++"}:
+        fail(f"the building process ran {b['builds_s']}, not nvcc and g++")
+    if not a["solved"] or not b["solved"]:
+        fail("a first tick did not solve")
+    pdiff = max(float(np.abs(a["plan"][k] - b["plan"][k]).max()
+                      / max(1.0, np.abs(b["plan"][k]).max()))
+                for k in b["plan"])
+    print(f"  the two first ticks' plans differ by {pdiff:.3e} of the largest")
+    if pdiff > 1e-6:
+        fail("the two first ticks differ")
+    launches["fast_start"] = a["launches"] + b["launches"]
+    phase("fast_start", t0)
+
+    # ---- 12. on-chip tick cost: a cold tick and 19 warm ticks ------------
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    k1.launches = 0
+    per_tick, solved_f, arrived_f = driver.onchip_tick_cost(
+        ConvLSTMAllocNet(5, 256, token_thresh=0.5), params, dcfg,
+        *cold_inputs, n_ticks=ONCHIP_TICKS, device=dev)
+    launches["onchip"] = k1.launches
+    print(f"onchip: {ONCHIP_TICKS} ticks chained on the card: "
+          f"{per_tick * 1e3:.1f} ms per tick, solved {solved_f:.4f}, "
+          f"arrived {arrived_f:.1f}; admm_chunk launches {k1.launches} "
+          f"(4 cold + {ONCHIP_TICKS - 1} warm)")
+    if not all(np.isfinite([per_tick, solved_f, arrived_f])):
+        fail("onchip_tick_cost gave a non-finite number")
+    if k1.launches != 4 + ONCHIP_TICKS - 1:
+        fail(f"onchip launched admm_chunk {k1.launches} times")
+    phase("onchip", t0)
+
+    # ---- 13. scaling: the solve sweep on this one card -------------------
+    t0 = time.perf_counter()
+    k1.launches = 0
+    sweep = scaling.solve_scaling(per_device_batch=B, device_counts=(1,),
+                                  cfg=QPConfig(), scfg=SolverConfig(),
+                                  device=dev)
+    launches["scaling"] = k1.launches
+    print(f"scaling: {json.dumps(sweep)}; admm_chunk launches {k1.launches}")
+    if sweep["platform"] != "gpu" or not sweep[1]["solves_per_sec"] > 0:
+        fail("solve_scaling did not run on the card")
+    phase("scaling", t0)
+
+    # ---- 14. min-jerk: the kernel at order 3 (D=6) -----------------------
+    t0 = time.perf_counter()
+    jcfg, scfg = config.jerk(QPConfig()), SolverConfig()
+    jsc = scenarios.random_scenarios(jcfg, JERK_B, seed=SEED, min_seg=1)
+    f32 = np.float32
+    jdata = qp.build_qp(jcfg, jsc.state.astype(f32), jsc.hpolys.astype(f32),
+                        jsc.times.astype(f32), jsc.seg, device=dev)
+    jargs = list(admm_chunk.chunk_inputs(jdata, scfg)) + [
+        scfg.iters_per_chunk, scfg.sigma, scfg.alpha]
+    shapes["jerk"] = shape_numbers(admm_chunk, jcfg, jargs, "min-jerk")
+    phase("jerk", t0)
+    return launches, shapes
+
+
 def main():
     import numpy as np
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--first-tick":
+        return first_tick(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -691,33 +1208,12 @@ def main():
     for batch in ("cold", "warm", "rescue"):
         if batch not in recorded:
             fail(f"no {batch} batch reached admm_chunk")
-        a = recorded[batch]
-        got = k1(*a)
-        torch.cuda.synchronize()
-        want = admm_chunk.admm_chunk_reference(*a)
-        errs = []
-        for name, g, w in zip(("x", "z", "yh", "yeh"), got, want):
-            if not bool(torch.isfinite(g).all()):
-                fail(f"kernel {name} not finite on the {batch} batch")
-            errs.append(float((g - w).abs().max())
-                        / max(1.0, float(w.abs().max())))
-        if max(errs) > CHUNK_TOL:
-            fail(f"admm_chunk disagrees with its plain version on the {batch} "
-                 f"batch: {max(errs):.3e} of the largest entry")
-        ms = cuda_ms(lambda: k1(*a), reps=20)
-        pms = cuda_ms(lambda: admm_chunk.admm_chunk_reference(*a), reps=3)
-        fl, nb = chunk_work(dcfg.qp, a[14], admm_chunk.aeq_dense(
-            a[5], a[6], dcfg.qp.n_var), a[8], a[10])
-        bms = max(fl / PEAK_F32_FLOPS, nb / PEAK_BYTES) * 1e3
-        tick_shapes[batch] = {"B": int(a[0].shape[0]), "iters": int(a[14]),
-                             "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                             "max_rel_err": max(errs)}
-        print(f"  admm_chunk on the {batch} batch (B={a[0].shape[0]}, "
-              f"{a[14]} iterations): kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-              f"bound {bms:.5f} ms ({fl:.3e} FLOP, {nb:.3e} B); max diff / "
-              f"max|plain| of x z yh yeh "
-              + " ".join(f"{e:.3e}" for e in errs))
+        tick_shapes[batch] = shape_numbers(admm_chunk, dcfg.qp,
+                                           recorded[batch], batch)
     phase("fly", t0)
+
+    app_launches, app_shapes = application_phases(
+        dev, drv, params, tick_inputs["cold"], missions[0])
 
     kernels = [{
         "name": "admm_chunk", "route": "cuda",
@@ -732,12 +1228,14 @@ def main():
             "refine": refine_launches,
             "cold_tick": sum(per_call["cold"]), "warm_tick": sum(per_call[0]),
             "rescue": sum(per_call[1]) + sum(per_call[2]),
-            "fly": fly_launches},
+            "fly": fly_launches, **app_launches},
         "launches_per_tick": {"cold": launches_per["cold"],
                               "warm": launches_per[0],
                               "light_rescue": launches_per[1],
                               "heavy_rescue": launches_per[2]},
         "tick_shapes": tick_shapes,
+        "certify_shape": app_shapes["certify"],
+        "jerk_shape": app_shapes["jerk"],
         "train_shape": {"ms": train_chunk_ms, "plain_ms": train_plain_ms,
                         "bound_ms": train_bound_ms,
                         "max_rel_err": max(terrs)},

@@ -20,7 +20,6 @@ from allocnet_tpu.models.networks import ConvLSTMAllocNet as JConvLSTM
 from allocnet_tpu.models.networks import ConvMLPAllocNet as JConvMLP
 from allocnet_tpu.train import losses as jlosses
 from allocnet_tpu.train import train_step as jts
-from allocnet_tpu.utils.scenarios import corridor_time_lower_bounds
 from allocnet_tpu_torch.config import (LossConfig, QPConfig, SolverConfig,
                                        TrainConfig)
 from allocnet_tpu_torch.models import weights
@@ -149,8 +148,8 @@ def test_two_adam_steps_match_jax(case):
         net = ConvLSTMAllocNet(5, 16, 0.42)
     tlb = None
     if case == "lstm_time_factor":
-        tlb = corridor_time_lower_bounds(sc.hpolys, sc.state, sc.seg,
-                                         QCFG.max_vel, QCFG.max_acc)
+        tlb = scenarios.corridor_time_lower_bounds(
+            sc.hpolys, sc.state, sc.seg, QCFG.max_vel, QCFG.max_acc)
     batch = (sc.state, sc.hpolys, sc.seg, sc.times)
 
     jstate = jts.init_state(jnet, jtcfg, jnp.asarray(sc.state),
