@@ -185,6 +185,13 @@ class AllocNetConfig:
 DEPLOY = AllocNetConfig()
 
 
+# The reference's ten-segment operating point (ModelMaxSeg = 10,
+# learning_planner.hpp:33, with the shipped seq10_rest2rest net): DEPLOY's
+# QP at 10 segments (n = 240 variables, 126 equality rows) and the seq_len
+# 10 ConvLSTM, which stops at token > 0.5 as every imported LSTM does.
+SEQ10 = AllocNetConfig(qp=QPConfig(max_seg=10),
+                       model=ModelConfig(seq_len=10, token_thresh=0.5))
+
 # Training operating point (network configs): res 10, v <= 5, a <= 7.
 TRAIN = AllocNetConfig(qp=QPConfig(order=4, res=10, max_vel=5.0, max_acc=7.0))
 

@@ -53,15 +53,19 @@
 //     most 2 D multiply-adds per row or block entry.
 //     ops/admm_chunk.live_parts states the same rule in PyTorch.
 //   * Layout for the SM.  512 threads and at most ~113 KB of shared memory
-//     per scenario, so two scenarios are resident per SM and one's barrier
-//     waits overlap the other's work (registers capped at 64 a thread).
+//     per scenario up to 7 segments at the deploy widths, so two scenarios
+//     are resident per SM and one's barrier waits overlap the other's work
+//     (registers capped at 64 a thread).  From 8 segments (n >= 192) one
+//     scenario's fixed part and slots alone outgrow half an SM, so a block
+//     takes up to the whole opt-in (~227 KB) and runs alone on its SM.
 //     Kx's live block sits in shared memory as f64 where the scenario's
 //     live state fits so (up to 4 live segments at the deploy widths), else
 //     as f32, else Kx is read from device memory (same kernel, L1/L2-
-//     cached); rows are 16-byte aligned and strided so the 8 rows a
-//     quarter-warp loads hit 32 banks.  z and yh hold live slots only,
-//     slot-major with a row stride of 8 (mod 32), so 4 lanes x 8 rows of a
-//     warp hit 32 banks.  Each sample row has 4 lanes: lanes 0-2 own axis
+//     cached; at n = 240 a dense Kx is ~230 KB a scenario, ~30 MB for 132
+//     resident blocks, inside the 50 MB L2); rows are 16-byte aligned and
+//     strided so the 8 rows a quarter-warp loads hit 32 banks.  z and yh
+//     hold live slots only, slot-major with a row stride of 8 (mod 32), so
+//     4 lanes x 8 rows of a warp hit 32 banks.  Each sample row has 4 lanes: lanes 0-2 own axis
 //     j's pos/vel/acc and its 4 box slots (no cross-lane sum for the box
 //     partials of G^T), faces are spread over all 4 and their 3 partials
 //     reduced over 2 shuffle levels.  D = 8 and R = 20 (the deploy shape)
@@ -73,6 +77,11 @@
 //   * Kx rrow is accumulated in f64 (f32 operands, f64 products and sum):
 //     rho_e = 100 rho_i makes the sum cancel, and an f32 sum there carries
 //     most of an f32 chunk's roundoff (the plain version does the same).
+//   * At 10 segments (n = 240) with every segment live a block runs alone
+//     on its SM and reads Kx from L2 each iteration: ~13-15 ms per launch
+//     at B=1024 x 150 on an H100 (700 W) against a ~0.6-1.1 ms bound, a
+//     latency-bound shape that a cluster holding Kx in two SMs' shared
+//     memory would address.
 //   * Tensor cores are not used: each scenario's Kx and Aeq are its own and
 //     an iteration has one right-hand side, so every product is a
 //     matrix-vector product, and the solve must run in full f32 or better
@@ -308,6 +317,24 @@ enum KxMode { kKxF64 = 0, kKxF32 = 1, kKxGlobal = 2 };
 // the 8 rows a quarter-warp reads with 16-byte loads hit 32 banks.
 __host__ __device__ inline int kx_stride(int na, bool f64) {
   return round_up(na, 8) + (f64 ? 2 : 4);
+}
+
+// Offset (words) of Kx's live block in shared memory, after the fixed part
+// and the z / yh slots of Ls live segments with at most Fw live faces.
+__host__ __device__ inline int kx_offset(const Dims& d, const Layout& L, int Ls,
+                                         int Fw) {
+  return round_up(L.small + 2 * (Fw + kBoxSlots) * zy_stride(Ls * d.R), 4);
+}
+
+// Where a block of `cap` words keeps Kx for that live state: f64 if its live
+// block fits so after the slots, else f32 if it fits so, else device memory.
+__host__ __device__ inline int kx_mode(const Dims& d, const Layout& L, int cap,
+                                       int Ls, int Fw) {
+  const int na = Ls * 3 * d.D;
+  const long long room = cap - (long long)kx_offset(d, L, Ls, Fw);
+  return 2LL * na * kx_stride(na, true) <= room          ? kKxF64
+         : (long long)na * kx_stride(na, false) <= room ? kKxF32
+                                                         : kKxGlobal;
 }
 
 // Phase B: xt = clip(Kx rrow) over the na live rows, x relaxed.  The
@@ -673,16 +700,15 @@ admm_chunk_kernel(Dims dm, int n_iters, float sigma, float alpha, int cap,
   const int na = Ls * 3 * D, NRa = Ls * R, NRw = zy_stride(NRa);
   const int slots = Fw + kBoxSlots;
   // shared memory after the fixed part: the live z and yh slots, then
-  // Kx's live block, as f64 if the scenario's live state fits so, else as
-  // f32 if it fits so, else Kx stays in device memory
+  // Kx's live block (kx_mode)
   float* zs = smem + L.small;
   float* ys = zs + slots * NRw;
-  float* kxs = smem + round_up(L.small + 2 * slots * NRw, 4);
-  const long long room = cap - (long long)(kxs - smem);
-  const int mode = 2LL * na * kx_stride(na, true) <= room ? kKxF64
-                   : (long long)na * kx_stride(na, false) <= room ? kKxF32
-                                                                  : kKxGlobal;
+  float* kxs = smem + kx_offset(dm, L, Ls, Fw);
+  const int mode = kx_mode(dm, L, cap, Ls, Fw);
   const int ldk_s = mode == kKxGlobal ? n : kx_stride(na, mode == kKxF64);
+#ifdef ADMM_CHUNK_PROFILE
+  if (tid == 0) pacc[kPhases] = mode;   // the load phase has no warp count
+#endif
 
   // ---- load: live z / yh slots, Kx's live block ---------------------------
   for (int i = tid; i < slots * NRa; i += kThreads) {
@@ -775,25 +801,28 @@ Dims make_dims(int S, int R, int F, int D, int m) {
   return Dims{S, R, F, D, n, m, S * R, F + kBoxSlots, 3 * S, round_up(n, 8)};
 }
 
-// Dynamic shared memory of one launch (bytes), or 0 when one scenario's
-// dense state (every slot and all of Kx) does not fit in what a block may
-// use.  Two blocks per SM where the dense state fits in half an SM;
-// otherwise as much as the dense state needs, but at least what its slots
-// and the fixed part need (then Kx is read from device memory).
+// Dynamic shared memory of one launch (bytes), or 0 when the fixed part and
+// one scenario's z / yh slots (every slot live) do not fit in what a block
+// may opt in to.  The dense state (those and all of Kx as f32) where it fits
+// in half an SM; else half an SM where the fixed part and the slots fit
+// there (two blocks per SM); else one block per SM, with the dense state or
+// all that a block may opt in to.  Kx's live block takes what is left after
+// a scenario's live slots (kx_mode), or stays in device memory.
 size_t launch_bytes(const Dims& d) {
-  const int small = layout(d).small;
-  const long long zy = 2LL * d.C * zy_stride(d.NR);
+  const long long slots = layout(d).small + 2LL * d.C * zy_stride(d.NR);
   const long long dense =
-      round_up(small + (int)zy, 4) + (long long)d.n * kx_stride(d.n, false);
+      round_up((int)slots, 4) + (long long)d.n * kx_stride(d.n, false);
   int dev = 0, optin = 0, per_sm = 0, reserved = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
-  if (dense * 4 > optin) return 0;
+  const long long most = optin / 4;
+  if (slots > most) return 0;
   const long long two = ((long long)per_sm / 2 - reserved) / 16 * 16 / 4;
-  long long words = dense < two ? dense : two;
-  if (words < small + zy) words = small + zy;
+  const long long words = dense <= two   ? dense
+                          : slots <= two ? two
+                                         : (dense < most ? dense : most);
   return (size_t)words * 4;
 }
 
@@ -803,11 +832,11 @@ extern "C" {
 
 // Launches one block per scenario on `stream`; returns cudaGetLastError(),
 // or cudaErrorInvalidValue (without launching) when the shape does not fit:
-// F + 12 <= 64 inequality slots, an even D, and one scenario's dense state
-// in the shared memory a block may opt in to.  All pointers are device,
-// contiguous, with the shapes of the Python wrapper
-// (allocnet_tpu_torch/ops/admm_chunk.py): f32, and int32 block indices
-// `ablk`.  `prof` is (B, 5) int64 in the profile build, else unused.
+// F + 12 <= 64 inequality slots, an even D, and the fixed part and one
+// scenario's z / yh slots in the shared memory a block may opt in to (Kx
+// may stay in device memory).  All pointers are device, contiguous, with
+// the shapes of the Python wrapper (allocnet_tpu_torch/ops/admm_chunk.py):
+// f32, and int32 block indices `ablk`.  `prof` is (B, 5) int64 in the profile build, else unused.
 int admm_chunk_launch(int B, int S, int R, int F, int D, int m, int n_iters,
                       float sigma, float alpha,
                       const float* kx, const float* aval, const int* ablk,
@@ -850,6 +879,16 @@ int admm_chunk_blocks_per_sm(int S, int R, int F, int D, int m) {
                                                     bytes) != cudaSuccess)
     return -1;
   return blocks;
+}
+
+// Where a block keeps Kx (0: f64 in shared memory, 1: f32 there, 2: device
+// memory) for a scenario with Ls live segments and at most Fw live face
+// slots in one, at this shape's launch; -1 if the shape is refused.
+int admm_chunk_kx_mode(int S, int R, int F, int D, int m, int Ls, int Fw) {
+  const Dims d = make_dims(S, R, F, D, m);
+  const size_t bytes = launch_bytes(d);
+  if (bytes == 0) return -1;
+  return kx_mode(d, layout(d), (int)(bytes / 4), Ls, Fw);
 }
 
 // Phases of the profile build, comma-separated, in prof's column order.

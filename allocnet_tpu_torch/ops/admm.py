@@ -447,13 +447,20 @@ def solve_qp(data: QPData, scfg: SolverConfig, x0=None, y0=None) -> QPSolution:
     """Full batched solve: ADMM, polish, status.  x0/y0: warm start.
 
     Runs on the device that holds `data`.  Matrix products stay in full
-    f32 (utils/device.resolve_device turns TF32 off)."""
+    f32 (utils/device.resolve_device turns TF32 off).  On a card the ADMM
+    runs through the admm_chunk kernel only, which takes f32 with
+    `use_pallas`, at most 52 faces (F + 12 <= 64 slots per sample row)
+    and a shape whose fixed part and z / yh slots fit in one block's
+    shared memory: on an H100 res <= 78 at 5 segments, <= 36 at 10 (the
+    deploy shape and config.SEQ10 at res 20 both launch); Kx stays in
+    device memory where it does not fit.  Anything else raises there."""
     from allocnet_tpu_torch.ops import admm_chunk
 
     B = data.times.shape[0]
     if data.times.device.type != "cpu":
         # on a card the ADMM runs through the kernel only: its wrapper
-        # raises on what it cannot take (not f32, a shape too large)
+        # raises on what it cannot take (not f32, slots too many for a
+        # block's shared memory)
         if not scfg.use_pallas:
             raise ValueError("solve_qp: use_pallas=False runs the plain ADMM "
                              "core, which the port keeps for the CPU")

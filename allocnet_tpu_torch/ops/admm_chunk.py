@@ -131,6 +131,8 @@ def _library(profile: bool = False) -> ctypes.CDLL:
     lib.admm_chunk_smem_bytes.restype = ctypes.c_size_t
     lib.admm_chunk_blocks_per_sm.argtypes = [i] * 5
     lib.admm_chunk_blocks_per_sm.restype = i
+    lib.admm_chunk_kx_mode.argtypes = [i] * 7
+    lib.admm_chunk_kx_mode.restype = i
     lib.admm_chunk_error_string.argtypes = [i]
     lib.admm_chunk_error_string.restype = ctypes.c_char_p
     lib.admm_chunk_phase_names.restype = ctypes.c_char_p
@@ -140,16 +142,44 @@ def _library(profile: bool = False) -> ctypes.CDLL:
 def smem_bytes(cfg: QPConfig) -> int:
     """Dynamic shared memory of one kernel block at this shape (bytes), as
     the built library computes it for the current card; 0 if the kernel
-    does not take the shape."""
+    does not take the shape (the fixed part and one scenario's z / yh
+    slots need more than a block may opt in to).  Half an SM where that
+    holds the fixed part and the slots (two blocks per SM), else up to the
+    whole opt-in (one block per SM); Kx stays in device memory where its
+    live block does not fit in what is left (`kx_modes`)."""
     return _library().admm_chunk_smem_bytes(cfg.max_seg, cfg.res,
                                             cfg.max_faces, cfg.D, cfg.n_eq)
 
 
 def blocks_per_sm(cfg: QPConfig) -> int:
     """Scenarios (blocks) resident per SM at this shape on the current card
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), -1 if refused."""
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), -1 if refused: 2 at
+    the deploy shape, 1 from 8 segments at res 20."""
     return _library().admm_chunk_blocks_per_sm(cfg.max_seg, cfg.res,
                                                cfg.max_faces, cfg.D, cfg.n_eq)
+
+
+# where a block keeps Kx, by the kernel's mode number
+KX_MODES = ("f64 shared", "f32 shared", "device memory")
+
+
+def kx_modes(*args) -> np.ndarray:
+    """(B,) int: where the kernel keeps each scenario's Kx on a launch with
+    these arguments (those of `admm_chunk`): 0 its live block as f64 in
+    shared memory, 1 as f32 there, 2 in device memory.  The rule its
+    blocks apply: `live_parts`, then what the launch's shared memory holds
+    after the live z / yh slots.  Needs the built library (the card's
+    shared memory sizes); the profile build records the same per block
+    (`phase_cycles`)."""
+    B, n, S, R, F, D, m = _dims(args[0], args[1], args[3], args[8])
+    Ls, face_live = live_parts(*args)
+    Fw = face_live.sum(-1).amax(-1)
+    lib, modes = _library(), {}
+    pairs = torch.stack([Ls, Fw], 1).cpu().tolist()
+    for p in pairs:
+        if tuple(p) not in modes:
+            modes[tuple(p)] = lib.admm_chunk_kx_mode(S, R, F, D, m, *p)
+    return np.array([modes[tuple(p)] for p in pairs])
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +294,9 @@ def _launch(lib, x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals, h,
             f"admm_chunk: launch failed at S={S} R={R} F={F} D={D} m={m}: "
             f"cudaError {err} ({lib.admm_chunk_error_string(err).decode()}); "
             f"the kernel takes F + {BOX_SLOTS} <= 64 slots per row, an even "
-            f"D and one scenario's dense state in one block's shared memory")
+            f"D, and the fixed part and one scenario's z / yh slots in the "
+            f"shared memory a block may opt in to (Kx may stay in device "
+            f"memory)")
     return tuple(outs)
 
 
@@ -273,7 +305,9 @@ def phase_cycles(*args, n_iters: int, sigma: float, alpha: float):
     arguments of `admm_chunk`): returns (phase names, (B, 3, phases) int64
     SM cycles per block, summed over the iterations: [:, 0] each phase's
     wall time, [:, 1] its slowest warp's busy time and [:, 2] all warps'
-    busy time, the last two for the iteration's phases only).  Not counted
+    busy time, the last two for the iteration's phases only; [:, 1, 0],
+    in the load phase's column, is where the block kept Kx, as in
+    `kx_modes`).  Not counted
     in `admm_chunk.launches`: it is a measurement, not the main path."""
     _check(*args)
     lib = _library(profile=True)
@@ -287,12 +321,15 @@ def phase_cycles(*args, n_iters: int, sigma: float, alpha: float):
 
 def admm_chunk_reference(x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals,
                          h, seg_mask, rho_i, rho_e, basis, n_iters: int,
-                         sigma: float, alpha: float):
+                         sigma: float, alpha: float,
+                         sum_dtype=torch.float64):
     """Plain PyTorch version of the kernel: the same iterations as batched
     tensor ops, dense (Aeq expanded, every segment and slot).  Everything is
     f32 but the x-update product Kx rrow, which is taken in f64 from its f32
     operands and rounded back (in f32 it carries most of a chunk's roundoff
-    error).  Returns new (x, z, yh, yeh)."""
+    error).  `sum_dtype=torch.float32` takes that product in f32 instead,
+    as the TPU kernel does (for accuracy studies); f64 inputs run the whole
+    chunk in f64.  Returns new (x, z, yh, yeh)."""
     B, n, S, R, F, D, m = _dims(x, z, yeh, normals)
     aeq = aeq_dense(aeq_val, aeq_blk, n)
     B0, B1, B2 = basis
@@ -312,8 +349,9 @@ def admm_chunk_reference(x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals,
         eq = torch.einsum('bmn,bm->bn', aeq, beq - yeh)
         rrow = sigma * x + re * eq + ri[:, :, 0] * gt.reshape(B, n)
         # Kx rrow: f32 operands, products and sum in f64, as the kernel
-        xt = torch.clamp(torch.einsum('bnm,bm->bn', kx.double(),
-                                      rrow.double()).to(x.dtype), -1e6, 1e6)
+        xt = torch.clamp(torch.einsum('bnm,bm->bn', kx.to(sum_dtype),
+                                      rrow.to(sum_dtype)).to(x.dtype),
+                         -1e6, 1e6)
         veq = torch.einsum('bmn,bn->bm', aeq, xt)
         xs = xt.view(B, S, 3, D)
         pos = torch.einsum('rd,bsjd->bsrj', B0, xs)
@@ -405,7 +443,7 @@ def padded_noise(data: qp.QPData, seed: int, every: int = 2):
 
 
 # batches that drive each of the kernel's routes, for the checks on the card
-CHECK_BATCHES = ("one_segment", "five_segments", "full_faces",
+CHECK_BATCHES = ("one_segment", "every_segment", "full_faces",
                  "padded_warm_start")
 
 
@@ -413,12 +451,12 @@ def check_batch(kind: str, cfg: QPConfig, scfg: SolverConfig, B: int,
                 seed: int, device):
     """The kernel's arguments for one of CHECK_BATCHES (f32 scenarios from
     `random_scenarios(seed)`): every scenario with 1 segment; every one with
-    5; 5 segments with every face slot in use (`scenarios.fill_faces`, no
-    padded face slot, so nothing is skipped); the deploy mix with a warm
-    start that is nonzero in padded parts on every other scenario
-    (`padded_noise`)."""
+    cfg.max_seg (every segment live); every segment with every face slot
+    in use (`scenarios.fill_faces`, no padded face slot, so nothing is
+    skipped); 1 to cfg.max_seg segments with a warm start that is nonzero
+    in padded parts on every other scenario (`padded_noise`)."""
     S = cfg.max_seg
-    segs = dict(one_segment=(1, 1), five_segments=(S, S), full_faces=(S, S),
+    segs = dict(one_segment=(1, 1), every_segment=(S, S), full_faces=(S, S),
                 padded_warm_start=(1, S))[kind]
     sc = scenarios.random_scenarios(cfg, B, seed=seed, min_seg=segs[0],
                                     max_seg=segs[1])

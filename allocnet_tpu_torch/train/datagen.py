@@ -56,6 +56,23 @@ def random_pillar_map(seed: int, extent=(20.0, 20.0, 4.0), n_pillars=8,
     return np.concatenate(pts)
 
 
+def maze_map() -> np.ndarray:
+    """A 40 x 20 x 4 m cloud of three full-height walls (x = 10, 20, 30 m)
+    with alternating 3 m gaps: a route across it must snake through them,
+    so its corridor keeps more than 5 polytopes (the ten-segment flow of
+    tests/test_seq10_e2e.py, whose `_maze_map` builds the same points)."""
+    pts = []
+    ys = np.arange(0.0, 20.0, 0.25)
+    zs = np.linspace(0.0, 4.0, 16)
+    for xw, gap in [(10.0, (2.0, 5.0)), (20.0, (15.0, 18.0)),
+                    (30.0, (2.0, 5.0))]:
+        yy = ys[(ys < gap[0]) | (ys > gap[1])]
+        g = np.stack(np.meshgrid(yy, zs, indexing="ij"), axis=-1)
+        pts.append(np.concatenate([np.full((*g.shape[:2], 1), xw), g],
+                                  axis=-1).reshape(-1, 3))
+    return np.concatenate(pts)
+
+
 def random_obstacle_map(seed: int, extent=(20.0, 20.0, 4.0)) -> np.ndarray:
     """Varied synthetic clutter: pillars of random radius, axis-aligned box
     walls, and floating slabs.  Broader corridor-shape distribution than

@@ -229,6 +229,8 @@ def profile_ticks(dev, reps, top):
 
 def print_phase_cycles(data, scfg, admm_chunk):
     """Per-phase cycles of one deploy chunk through the profile build."""
+    import torch
+
     B = data.times.shape[0]
     args = admm_chunk.chunk_inputs(data, scfg)
     it = scfg.iters_per_chunk
@@ -243,9 +245,12 @@ def print_phase_cycles(data, scfg, admm_chunk):
                                               alpha=scfg.alpha)
         mean = prof.double().mean(0)          # (3, phases)
         total = float(mean[0].sum())
+        kx = torch.bincount(prof[:, 1, 0], minlength=3)
         print(f"admm_chunk phases, B={count} x {it} iterations (profile "
               f"build; SM cycles, mean over blocks): {total:.0f} cycles per "
-              f"block")
+              f"block; Kx kept " + ", ".join(
+                  f"{name} {int(c)}" for name, c in
+                  zip(admm_chunk.KX_MODES, kx)))
         print(f"{'phase':>8} {'cycles/launch':>14} {'share':>6} "
               f"{'wall/iter':>10} {'slowest warp busy/iter':>23} "
               f"{'mean warp busy/iter':>20}")

@@ -84,6 +84,18 @@ WITNESS_DRAWS = 32
 WITNESS_SEED = 7
 ONCHIP_TICKS = 20
 JERK_B = 256
+# seq10 phase: config.SEQ10 (ModelMaxSeg = 10, the shipped seq10 net) at
+# res 20; the first SEQ10_CPU_N scenarios solved again on the CPU; the
+# refine request's batch; the maze flow of tests/test_seq10_e2e.py (its
+# res 10, generous box limits and 2 x 150 budget: the seq10 net is out of
+# distribution on synthetic maps)
+SEQ10_NET = os.path.join("data", "params", "seq10_rest2rest.msgpack")
+SEQ10_CPU_N = 64
+SEQ10_FLAG_AGREE = 0.95
+SEQ10_REFINE_B = 256
+MAZE_EXTENT = (40.0, 20.0, 4.0)
+MAZE_STARTS = ((2.0, 10.0, 2.0), (2.0, 17.0, 2.0))
+MAZE_GOALS = ((38.0, 10.0, 2.0), (38.0, 3.0, 2.0))
 
 
 def phase(name, t0):
@@ -621,6 +633,269 @@ def application_phases(dev, drv, params, cold_inputs, mission):
     shapes["jerk"] = shape_numbers(admm_chunk, jcfg, jargs, "min-jerk")
     phase("jerk", t0)
     return launches, shapes
+
+
+def seq10_phase(dev, qp_oracle):
+    """The ten-segment operating point (`config.SEQ10`, n = 240) through
+    the kernel: against its plain version on the solve's first chunk and
+    on three route batches, the S = 10 solve (f64 oracle, CPU flags), one
+    plan_batch request with the seq10 net and one with refinement, and
+    plan_many on the maze.  Returns the kernel's launches by path and its
+    numbers at this shape."""
+    import numpy as np
+    import torch
+    from allocnet_tpu_torch import config
+    from allocnet_tpu_torch.config import (AllocNetConfig, CorridorConfig,
+                                           QPConfig, SolverConfig)
+    from allocnet_tpu_torch.models import weights
+    from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
+    from allocnet_tpu_torch.ops import admm, admm_chunk, qp
+    from allocnet_tpu_torch.planner import pipeline, planner, trajectory
+    from allocnet_tpu_torch.train import datagen
+    from allocnet_tpu_torch.utils import scenarios
+
+    t0 = time.perf_counter()
+    k1 = admm_chunk.admm_chunk
+    cfg, scfg = config.SEQ10.qp, config.SEQ10.solver
+    it, f32 = scfg.iters_per_chunk, np.float32
+    launches = {}
+    print(f"seq10: S={cfg.max_seg}, res={cfg.res}, n={cfg.n_var}, "
+          f"m={cfg.n_eq}: dynamic shared memory per block "
+          f"{admm_chunk.smem_bytes(cfg)} bytes, blocks (scenarios) per SM "
+          f"{admm_chunk.blocks_per_sm(cfg)}")
+    if admm_chunk.blocks_per_sm(cfg) < 1:
+        fail("the kernel refuses the ten-segment shape")
+
+    def kx_kept(a):
+        modes = np.bincount(admm_chunk.kx_modes(*a[:14]), minlength=3)
+        return ", ".join(f"{n} {int(c)}" for n, c in
+                         zip(admm_chunk.KX_MODES, modes))
+
+    sc = scenarios.random_scenarios(cfg, B, seed=SEED, min_seg=1)
+    data = qp.build_qp(cfg, sc.state.astype(f32), sc.hpolys.astype(f32),
+                       sc.times.astype(f32), sc.seg, device=dev)
+    args = list(admm_chunk.chunk_inputs(data, scfg)) + [it, scfg.sigma,
+                                                        scfg.alpha]
+    shape = shape_numbers(admm_chunk, cfg, args, "seq10 solve's first chunk",
+                          reps=5)
+    print(f"  Kx kept: {kx_kept(args)}; segments per scenario "
+          f"{float(sc.seg.mean()):.3f}")
+    shape["batches"] = {}
+    for batch in ("every_segment", "full_faces", "padded_warm_start"):
+        rargs = list(admm_chunk.check_batch(batch, cfg, scfg, B, SEED, dev)) + [
+            it, scfg.sigma, scfg.alpha]
+        shape["batches"][batch] = shape_numbers(admm_chunk, cfg, rargs,
+                                                f"seq10 {batch}", reps=3)
+        print(f"  Kx kept: {kx_kept(rargs)}")
+    phase("seq10 kernel", t0)
+
+    # ---- the S = 10 solve --------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    k1.launches = 0
+    sol = admm.solve_qp(data, scfg)
+    torch.cuda.synchronize()
+    launches["seq10_solve"] = k1.launches
+    if k1.launches != scfg.n_chunks:
+        fail(f"the S=10 solve launched admm_chunk {k1.launches} times")
+    solved = sol.solved.cpu().numpy()
+    coeffs = sol.coeffs.cpu().numpy()
+    rel = torch.maximum(sol.pri_rel, sol.dua_rel).cpu().numpy()
+    if coeffs.shape != (B, cfg.max_seg, 3, cfg.D) or not np.isfinite(
+            coeffs).all():
+        fail("the S=10 solve gave non-finite coefficients")
+    idx = np.nonzero(solved)[0]
+    if len(idx) == 0:
+        fail("the S=10 solve solved nothing")
+    # half of the oracle's scenarios from the solved ones of more than 5
+    # segments, half from the rest, each spread over the batch
+    picks = []
+    for part in (idx[sc.seg[idx] > 5], idx[sc.seg[idx] <= 5]):
+        if len(part):
+            picks += part[np.linspace(0, len(part) - 1,
+                                      ORACLE_N // 2).astype(int)].tolist()
+    checked, max_diff, long_checked = 0, 0.0, 0
+    for b in sorted(set(picks)):
+        ora = qp_oracle.solve_scenario(cfg, sc.state[b], sc.hpolys[b],
+                                       sc.times[b], sc.seg[b])
+        if ora["kkt"] > 1e-7:
+            continue
+        L = int(sc.seg[b])
+        max_diff = max(max_diff, float(np.abs(coeffs[b, :L]
+                                              - ora["coeffs"]).max()))
+        checked += 1
+        long_checked += L > 5
+    sets = [cuda_ms(lambda: admm.solve_qp(data, scfg), reps=3)
+            for _ in range(2)]
+    print(f"seq10 solve_qp B={B}: solved {float(solved.mean()):.4f} "
+          f"(segments {float(sc.seg.mean()):.3f} per scenario), max "
+          f"normalized residual on the solved set {float(rel[solved].max()):.3e}"
+          f"; f64 oracle: {checked} scenarios ({long_checked} with more than "
+          f"5 segments), max coefficient diff {max_diff:.3e}; admm_chunk "
+          f"launches {launches['seq10_solve']}; ms per solve, 2 sets x 3: "
+          + ", ".join(f"{t:.2f}" for t in sets)
+          + f" -> {B / (np.mean(sets) / 1e3):.1f} solves/s")
+    if checked < ORACLE_N // 2 or long_checked == 0 or max_diff > 1e-3:
+        fail(f"S=10 oracle parity: {checked} checked ({long_checked} long), "
+             f"max diff {max_diff:.2e}")
+    n = SEQ10_CPU_N
+    cdata = qp.build_qp(cfg, sc.state[:n].astype(f32),
+                        sc.hpolys[:n].astype(f32), sc.times[:n].astype(f32),
+                        sc.seg[:n], device="cpu")
+    csol = admm.solve_qp(cdata, scfg)
+    cs = csol.solved.numpy()
+    agree = float((cs == solved[:n]).mean())
+    both = cs & solved[:n]
+    cdiff = float(np.abs(coeffs[:n] - csol.coeffs.numpy())[both].max()) \
+        if both.any() else 0.0
+    print(f"  vs the CPU plain path on the first {n}: solved flags agree on "
+          f"{agree:.4f}, {int(both.sum())} solved on both, max coefficient "
+          f"diff {cdiff:.3e}")
+    for b in np.nonzero(cs != solved[:n])[0]:
+        print(f"    scenario {b} (seg {sc.seg[b]}): card solved "
+              f"{bool(solved[b])} pri_rel {float(sol.pri_rel[b]):.3e} dua_rel "
+              f"{float(sol.dua_rel[b]):.3e}; CPU solved {bool(cs[b])} pri_rel "
+              f"{float(csol.pri_rel[b]):.3e} dua_rel "
+              f"{float(csol.dua_rel[b]):.3e}")
+    if agree < SEQ10_FLAG_AGREE:
+        fail("the S=10 solve's flags on the card disagree with the CPU's")
+    # where the two f32 solves land more than 1e-3 apart, the card's
+    # coefficients are the ones held to the f64 oracle
+    apart = both & (np.abs(coeffs[:n] - csol.coeffs.numpy()).reshape(
+        n, -1).max(1) > 1e-3)
+    for b in np.nonzero(apart)[0]:
+        ora = qp_oracle.solve_scenario(cfg, sc.state[b], sc.hpolys[b],
+                                       sc.times[b], sc.seg[b])
+        L = int(sc.seg[b])
+        e_card = float(np.abs(coeffs[b, :L] - ora["coeffs"]).max())
+        e_cpu = float(np.abs(csol.coeffs.numpy()[b, :L]
+                             - ora["coeffs"]).max())
+        print(f"    scenario {b} (seg {L}): card and CPU {float(np.abs(coeffs[b] - csol.coeffs.numpy()[b]).max()):.3e} "
+              f"apart; from the f64 oracle (kkt {ora['kkt']:.1e}) card "
+              f"{e_card:.3e}, CPU {e_cpu:.3e}")
+        if ora["kkt"] <= 1e-7 and e_card > 1e-3:
+            fail(f"S=10 scenario {b}: the card's solution is not the "
+                 f"oracle's")
+    phase("seq10 solve", t0)
+
+    # ---- serve: one plan_batch request with the seq10 net, one refined ---
+    t0 = time.perf_counter()
+    net = ConvLSTMAllocNet(cfg.max_seg, 256, config.SEQ10.model.token_thresh)
+    net.load_state_dict(weights.load_params(os.path.join(ROOT, SEQ10_NET)))
+    net = net.to(dev).eval()
+    req = scenarios.random_scenarios(cfg, B, seed=SEED + 1, min_seg=1)
+    pipeline.plan_batch(net, cfg, scfg, req.state[:8], req.hpolys[:8],
+                        req.seg[:8])                       # warm-up
+    torch.cuda.synchronize()
+    k1.launches = 0
+    t1 = time.perf_counter()
+    res = pipeline.plan_batch(net, cfg, scfg, req.state, req.hpolys, req.seg)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t1) * 1e3
+    launches["seq10_serve"] = k1.launches
+    if k1.launches != scfg.n_chunks:
+        fail(f"the seq10 plan_batch launched admm_chunk {k1.launches} times")
+    if res.coeffs.shape != (B, cfg.max_seg, 3, cfg.D) or not bool(
+            torch.isfinite(res.coeffs).all()):
+        fail("the seq10 plan_batch gave non-finite coefficients")
+    n_ref = 16
+    cref = pipeline.plan_batch(net.to("cpu"), cfg, scfg, req.state[:n_ref],
+                               req.hpolys[:n_ref], req.seg[:n_ref],
+                               device="cpu")
+    net = net.to(dev)
+    t_ok = torch.allclose(res.times[:n_ref].cpu(), cref.times, rtol=1e-4,
+                          atol=1e-5)
+    s_agree = int((res.solved[:n_ref].cpu() == cref.solved).sum())
+    print(f"seq10 plan_batch B={B}: {serve_ms:.1f} ms; solved "
+          f"{float(res.solved.float().mean()):.4f}, ok "
+          f"{float(res.ok.float().mean()):.4f}; admm_chunk launches "
+          f"{launches['seq10_serve']}; vs CPU on {n_ref}: times agree {t_ok}, "
+          f"solved flags agree on {s_agree}")
+    if not t_ok or s_agree < n_ref - 1:
+        fail("the seq10 plan_batch on the card disagrees with the CPU path")
+    rin = (req.state[:SEQ10_REFINE_B], req.hpolys[:SEQ10_REFINE_B],
+           req.seg[:SEQ10_REFINE_B])
+    base = pipeline.plan_batch(net, cfg, scfg, *rin)
+    torch.cuda.synchronize()
+    k1.launches = 0
+    t1 = time.perf_counter()
+    ref = pipeline.plan_batch(net, cfg, scfg, *rin, refine_steps=2)
+    torch.cuda.synchronize()
+    refine_ms = (time.perf_counter() - t1) * 1e3
+    launches["seq10_refine"] = k1.launches
+    active = (torch.arange(cfg.max_seg, device=dev)[None, :]
+              < torch.as_tensor(rin[2], device=dev)[:, None])
+    tot_b = torch.where(active, torch.clamp_min(base.times, 0.05),
+                        base.times).sum(1)
+    tot_err = float(((ref.times.sum(1) - tot_b).abs() / tot_b).max())
+    kept = bool(ref.solved[base.solved].all())
+    print(f"  refine_steps=2 at B={SEQ10_REFINE_B}: {refine_ms:.1f} ms; "
+          f"solved {int(base.solved.sum())} -> {int(ref.solved.sum())}; "
+          f"total time kept to {tot_err:.2e}; admm_chunk launches "
+          f"{launches['seq10_refine']}")
+    if (k1.launches != 5 * scfg.n_chunks or tot_err > 1e-4 or not kept
+            or not bool(torch.isfinite(ref.coeffs).all())):
+        fail("the seq10 refined plan_batch failed its checks")
+    phase("seq10 serve", t0)
+
+    # ---- plan_many on the maze: corridors of more than 5 segments --------
+    t0 = time.perf_counter()
+    mcfg = AllocNetConfig(
+        qp=QPConfig(res=10, max_seg=cfg.max_seg, max_vel=8.0, max_acc=12.0),
+        solver=SolverConfig(n_chunks=2, iters_per_chunk=150),
+        model=config.SEQ10.model, corridor=CorridorConfig(use_rrt_star=False))
+    pts, lo, hi = datagen.maze_map(), np.zeros(3), np.asarray(MAZE_EXTENT)
+    starts, goals = np.asarray(MAZE_STARTS), np.asarray(MAZE_GOALS)
+    out = {}
+    for d in (dev, "cpu"):
+        pmap = planner.build_map(pts, lo, hi, scale=0.25, dilate_r=2,
+                                 device=d)
+        torch.cuda.synchronize()
+        k1.launches = 0
+        t1 = time.perf_counter()
+        # corridors in f64, as the JAX package computes them in its test
+        out[d] = planner.plan_many(pmap, starts, goals, net.to(d), None,
+                                   mcfg, device=d, dtype=torch.float64)
+        torch.cuda.synchronize()
+        if d == dev:
+            many_ms = (time.perf_counter() - t1) * 1e3
+            launches["seq10_plan_many"] = k1.launches
+    net.to(dev)
+    g, c = out[dev], out["cpu"]
+    segs = g.traj.seg_mask.sum(-1).cpu().numpy().astype(int)
+    g_solved = g.result.solved.cpu().numpy()
+    long_ok = g.corridor_ok & g_solved & (segs > 5)
+    print(f"seq10 plan_many on the maze ({len(pts)} points): {many_ms:.1f} ms;"
+          f" reasons {g.reasons}, segments {segs.tolist()}, solved "
+          f"{g_solved.tolist()} (CPU: {c.reasons}, "
+          f"{c.traj.seg_mask.sum(-1).numpy().astype(int).tolist()}, "
+          f"{c.result.solved.numpy().tolist()}); admm_chunk launches "
+          f"{launches['seq10_plan_many']}")
+    if launches["seq10_plan_many"] != mcfg.solver.n_chunks:
+        fail("plan_many did not launch admm_chunk once per chunk")
+    if g.reasons != c.reasons or not np.array_equal(
+            segs, c.traj.seg_mask.sum(-1).numpy().astype(int)):
+        fail("the maze corridors on the card differ from the CPU's")
+    if not torch.allclose(g.result.times.cpu(), c.result.times, rtol=1e-4,
+                          atol=1e-5):
+        fail("the maze plans' times on the card differ from the CPU's")
+    if not long_ok.any():
+        fail("no maze plan of more than 5 segments solved")
+    b = int(np.nonzero(long_ok)[0][0])
+    one = trajectory.Trajectory(*(t[b:b + 1] for t in g.traj))
+    _, states = trajectory.sample(one, n=64)
+    vmax, amax = trajectory.max_rates(one)
+    start_err = float((states[0, 0, 0].cpu() - torch.as_tensor(
+        starts[b], dtype=states.dtype)).abs().max())
+    print(f"  plan {b} ({segs[b]} segments): start within {start_err:.2e} m, "
+          f"max speed {float(vmax[0]):.3f} m/s, max acceleration "
+          f"{float(amax[0]):.3f} m/s^2")
+    if (not bool(torch.isfinite(states).all()) or start_err > 1e-2
+            or float(vmax[0]) > 1.2 * mcfg.qp.max_vel
+            or float(amax[0]) > 1.2 * mcfg.qp.max_acc):
+        fail(f"the maze plan {b} is not a sane trajectory")
+    phase("seq10 plan_many", t0)
+    return launches, shape
 
 
 def main():
@@ -1214,6 +1489,7 @@ def main():
 
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
+    seq10_launches, seq10_shape = seq10_phase(dev, qp_oracle)
 
     kernels = [{
         "name": "admm_chunk", "route": "cuda",
@@ -1228,7 +1504,7 @@ def main():
             "refine": refine_launches,
             "cold_tick": sum(per_call["cold"]), "warm_tick": sum(per_call[0]),
             "rescue": sum(per_call[1]) + sum(per_call[2]),
-            "fly": fly_launches, **app_launches},
+            "fly": fly_launches, **app_launches, **seq10_launches},
         "launches_per_tick": {"cold": launches_per["cold"],
                               "warm": launches_per[0],
                               "light_rescue": launches_per[1],
@@ -1236,6 +1512,7 @@ def main():
         "tick_shapes": tick_shapes,
         "certify_shape": app_shapes["certify"],
         "jerk_shape": app_shapes["jerk"],
+        "seq10_shape": seq10_shape,
         "train_shape": {"ms": train_chunk_ms, "plain_ms": train_plain_ms,
                         "bound_ms": train_bound_ms,
                         "max_rel_err": max(terrs)},

@@ -20,10 +20,11 @@ from tests.torch_threads import one_torch_thread  # noqa: F401
 SIGMA, ALPHA = 1e-6, 1.6
 
 
-def _inputs(res, B, seed):
+def _inputs(res, B, seed, max_seg=5):
     """The same chunk inputs for both sides: seeded scenarios, a random
     primal/dual state and random per-scenario rho."""
-    cfg, jcfg = QPConfig(res=res), JQPConfig(res=res)
+    cfg, jcfg = QPConfig(res=res, max_seg=max_seg), JQPConfig(res=res,
+                                                              max_seg=max_seg)
     sc = scenarios.random_scenarios(cfg, B, seed=seed, min_seg=1)
     arrs = [sc.state.astype(np.float32), sc.hpolys.astype(np.float32),
             sc.times.astype(np.float32), sc.seg]
@@ -38,14 +39,19 @@ def _inputs(res, B, seed):
     return cfg, jcfg, data, jdata, x, z, y, rho_i
 
 
-def _run_both(res, B, seed, n_iters):
-    cfg, jcfg, data, jdata, x, z, y, rho_i = _inputs(res, B, seed)
+def _run_both(res, B, seed, n_iters, max_seg=5, kx_t=False):
+    """Both sides' chunk outputs (port, K1) and the port's arguments.
+    `kx_t`: give both sides Kx^T in place of their Kx (the port then
+    applies Kx, as the XLA scan does)."""
+    cfg, jcfg, data, jdata, x, z, y, rho_i = _inputs(res, B, seed, max_seg)
     rho_e = rho_i * 100.0
     NQ, NRR, MEQ = K1.dims(jcfg)
     M = jqp.normal_matrix(jdata, SIGMA, jnp.asarray(rho_e), jnp.asarray(rho_i))
     Minv = jadmm.spd_inverse(M)
     # K1's packing, straight from the JAX package
     kx = K1._fused_refined_inverse(M, Minv, NQ)
+    if kx_t:
+        kx = jnp.swapaxes(kx, 1, 2)
     nx, ny, nz, h, rmask, aeq, beq = K1._pack_scenario(jdata)
     cbig = K1._cbig_np(jcfg)
     ri, re = jnp.asarray(rho_i), jnp.asarray(rho_e)
@@ -74,7 +80,8 @@ def _run_both(res, B, seed, n_iters):
             / T(rho_i)[:, None, None],
             qp.tree_flat({k: T(y[k]) for k in qp.EQ_KEYS}, qp.EQ_KEYS)
             / T(rho_e)[:, None],
-            admm_chunk.fused_refined_inverse(M_t, Minv_t), aval_t, ablk_t,
+            _maybe_t(admm_chunk.fused_refined_inverse(M_t, Minv_t), kx_t),
+            aval_t, ablk_t,
             beq_t, nrm_t, h_t, sm_t, T(rho_i), T(rho_e), bas_t)
     before = admm_chunk.admm_chunk.launches
     px, pz, pyh, pyeh = admm_chunk.admm_chunk(*args, n_iters, SIGMA, ALPHA)
@@ -82,7 +89,11 @@ def _run_both(res, B, seed, n_iters):
     want = dict(x=jx, z=admm_chunk.ineq_pack({k: T(v) for k, v in jz.items()}),
                 yh=admm_chunk.ineq_pack({k: T(v) for k, v in jyh.items()}),
                 yeh=qp.tree_flat({k: T(v) for k, v in jyeh.items()}, qp.EQ_KEYS))
-    return dict(x=px, z=pz, yh=pyh, yeh=pyeh), want
+    return dict(x=px, z=pz, yh=pyh, yeh=pyeh), want, args
+
+
+def _maybe_t(kx, t):
+    return kx.transpose(1, 2).contiguous() if t else kx
 
 
 # f32 on both sides, different summation order; ADMM amplifies roundoff
@@ -91,7 +102,7 @@ def _run_both(res, B, seed, n_iters):
 @pytest.mark.parametrize("res,B,seed,n_iters", [(10, 8, 5, 1), (10, 8, 5, 20),
                                                  (20, 4, 11, 10)])
 def test_chunk_reference_matches_tpu_kernel(res, B, seed, n_iters):
-    got, want = _run_both(res, B, seed, n_iters)
+    got, want, _ = _run_both(res, B, seed, n_iters)
     for k in got:
         g, w = got[k].numpy(), np.asarray(want[k])
         assert g.shape == w.shape
@@ -129,8 +140,8 @@ def test_structured_aeq_expands_to_dense_eq_bit_for_bit(L):
                 ref.to(torch.float32).numpy(), rtol=1e-5, atol=1e-5)
 
 
-def _chunk_case(res, B, seed, warm):
-    cfg, scfg = QPConfig(res=res), SolverConfig()
+def _chunk_case(res, B, seed, warm, max_seg=5):
+    cfg, scfg = QPConfig(res=res, max_seg=max_seg), SolverConfig()
     sc = scenarios.random_scenarios(cfg, B, seed=seed, min_seg=1)
     f32 = np.float32
     data = qp.build_qp(cfg, sc.state.astype(f32), sc.hpolys.astype(f32),

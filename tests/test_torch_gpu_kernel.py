@@ -13,12 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from allocnet_tpu_torch.config import QPConfig, SolverConfig
+from allocnet_tpu_torch import config
+from allocnet_tpu_torch.config import (AllocNetConfig, CorridorConfig,
+                                       QPConfig, SolverConfig)
 from allocnet_tpu_torch.models import weights
 from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
 from allocnet_tpu_torch.ops import admm, admm_chunk, qp
-from allocnet_tpu_torch.planner import pipeline
+from allocnet_tpu_torch.planner import pipeline, planner
+from allocnet_tpu_torch.train import datagen
 from allocnet_tpu_torch.utils import scenarios
+from tests.oracle import qp_oracle
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernel vs plain: f32 sums in another order, amplified through cond(M) ~
@@ -68,14 +72,40 @@ def test_kernel_matches_plain(cuda, res, B, n_iters):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("res,order", [(20, 4), (10, 4), (20, 3), (10, 3)])
+def test_kernel_matches_plain_at_ten_segments(cuda, res, order):
+    """Ten segments (n = 240 at order 4, 180 at order 3), B=256 x 150
+    iterations from a random dual state: at res 20 one block per SM (Kx's
+    live block in shared memory where it fits, else in device memory), at
+    res 10 two."""
+    scfg = SolverConfig()
+    cfg = QPConfig(res=res, max_seg=10, order=order)
+    _, data = _data(cfg, 256, 7, cuda)
+    args = _chunk_args(data, scfg, 7)
+    before = admm_chunk.admm_chunk.launches
+    got = admm_chunk.admm_chunk(*args, scfg.iters_per_chunk, scfg.sigma,
+                                scfg.alpha)
+    torch.cuda.synchronize()
+    assert admm_chunk.admm_chunk.launches == before + 1
+    want = admm_chunk.admm_chunk_reference(*args, scfg.iters_per_chunk,
+                                           scfg.sigma, scfg.alpha)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_seg", [5, 10])
 @pytest.mark.parametrize("kind", admm_chunk.CHECK_BATCHES)
-def test_kernel_matches_plain_on_each_route(cuda, kind):
-    """Deploy shape, B=1024 x 150 iterations, on batches that take each of
-    the kernel's routes: padded segments and faces skipped (1 segment),
-    nothing to skip but faces (5 segments), nothing skipped and Kx read
-    from device memory (full faces), skip checks failing on every other
-    scenario (nonzero padded warm start)."""
-    cfg, scfg = QPConfig(), SolverConfig()
+def test_kernel_matches_plain_on_each_route(cuda, kind, max_seg):
+    """res 20, B=1024 x 150 iterations, at the deploy shape and at ten
+    segments, on batches that take each of the kernel's routes: padded
+    segments and faces skipped (1 segment), nothing to skip but faces
+    (every segment), nothing skipped and Kx read from device memory (full
+    faces), skip checks failing on every other scenario (nonzero padded
+    warm start)."""
+    cfg, scfg = QPConfig(max_seg=max_seg), SolverConfig()
     args = admm_chunk.check_batch(kind, cfg, scfg, 1024, 11, cuda)
     got = admm_chunk.admm_chunk(*args, scfg.iters_per_chunk, scfg.sigma,
                                 scfg.alpha)
@@ -94,6 +124,100 @@ def test_kernel_build_has_no_spills_and_two_blocks_per_sm(cuda):
     spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", report)
     assert spills and all(int(v) == 0 for v in spills), report
     assert admm_chunk.blocks_per_sm(QPConfig()) >= 2
+
+
+@pytest.mark.gpu
+def test_blocks_per_sm_at_ten_segments(cuda):
+    """At S = 10, res 20 the fixed part and one scenario's slots outgrow
+    half an SM: one block per SM, with all the shared memory a block may
+    opt in to; at res 10 two.  The deploy shape keeps two."""
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    assert admm_chunk.blocks_per_sm(QPConfig(max_seg=10)) == 1
+    assert admm_chunk.smem_bytes(QPConfig(max_seg=10)) == optin // 4 * 4
+    assert admm_chunk.blocks_per_sm(QPConfig(res=10, max_seg=10)) >= 2
+    assert admm_chunk.blocks_per_sm(QPConfig()) >= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_seg,kind,want", [
+    (5, "full_faces", {2}), (5, "one_segment", {0}),
+    (10, "every_segment", {2}), (10, None, {0, 1, 2})])
+def test_kx_modes_match_the_profile_build(cuda, max_seg, kind, want):
+    """Where each block keeps Kx, as the profile build records it, equals
+    `kx_modes`' rule: the deploy shape's full-faces batch reads Kx from
+    device memory, a 1-segment batch keeps it as f64 in shared memory;
+    at S = 10 every live segment sends Kx to device memory, and the mix of
+    1 to 10 segments (B=256, seed 123) takes all three."""
+    cfg, scfg = QPConfig(max_seg=max_seg), SolverConfig()
+    if kind is None:
+        data = _data(cfg, 256, 123, cuda)[1]
+        args = admm_chunk.chunk_inputs(data, scfg)
+    else:
+        args = admm_chunk.check_batch(kind, cfg, scfg, 256, 11, cuda)
+    modes = admm_chunk.kx_modes(*args)
+    _, prof = admm_chunk.phase_cycles(*args, n_iters=2, sigma=scfg.sigma,
+                                      alpha=scfg.alpha)
+    np.testing.assert_array_equal(prof[:, 1, 0].numpy(), modes)
+    assert set(modes.tolist()) == want
+
+
+@pytest.mark.gpu
+def test_ten_segment_paths_on_the_card(cuda):
+    """solve_qp, plan_batch with the seq10 net and plan_many on the maze
+    at max_seg=10 run through the kernel (n_chunks launches each) and
+    agree with the CPU: solved flags on 63 of 64; where the coefficients
+    of a scenario both solve differ by more than 1e-3, the card's are
+    within 1e-3 of the f64 oracle; a maze plan of more than 5 segments
+    solves."""
+    cfg, scfg = config.SEQ10.qp, config.SEQ10.solver
+    sc, data = _data(cfg, 64, 5, cuda)
+    before = admm_chunk.admm_chunk.launches
+    sol = admm.solve_qp(data, scfg)
+    torch.cuda.synchronize()
+    assert admm_chunk.admm_chunk.launches == before + scfg.n_chunks
+    ref = admm.solve_qp(_data(cfg, 64, 5, "cpu")[1], scfg)
+    solved = sol.solved.cpu()
+    assert int((solved == ref.solved).sum()) >= 63
+    both = solved & ref.solved
+    assert bool((torch.as_tensor(sc.seg)[both] > 5).any())
+    # where the two f32 solves land apart, the card is the one within
+    # 1e-3 of the f64 oracle (where the oracle certifies its KKT point)
+    diff = (sol.coeffs.cpu() - ref.coeffs).abs().flatten(1).amax(1)
+    for b in torch.nonzero(both & (diff > 1e-3))[:, 0].tolist():
+        L = int(sc.seg[b])
+        ora = qp_oracle.solve_scenario(cfg, sc.state[b], sc.hpolys[b],
+                                       sc.times[b], L)
+        if ora["kkt"] < 1e-7:           # else the oracle is not certified
+            assert np.abs(sol.coeffs[b, :L].cpu().numpy()
+                          - ora["coeffs"]).max() <= 1e-3, b
+
+    net = ConvLSTMAllocNet(10, 256, config.SEQ10.model.token_thresh)
+    net.load_state_dict(weights.load_params(
+        os.path.join(ROOT, "data/params/seq10_rest2rest.msgpack")))
+    net = net.to(cuda)
+    before = admm_chunk.admm_chunk.launches
+    res = pipeline.plan_batch(net, cfg, scfg, sc.state, sc.hpolys, sc.seg)
+    torch.cuda.synchronize()
+    assert admm_chunk.admm_chunk.launches == before + scfg.n_chunks
+    assert res.coeffs.shape == (64, 10, 3, 8)
+    assert torch.isfinite(res.coeffs).all()
+
+    mcfg = AllocNetConfig(
+        qp=QPConfig(res=10, max_seg=10, max_vel=8.0, max_acc=12.0),
+        solver=SolverConfig(n_chunks=2, iters_per_chunk=150),
+        model=config.SEQ10.model, corridor=CorridorConfig(use_rrt_star=False))
+    pmap = planner.build_map(datagen.maze_map(), np.zeros(3),
+                             np.array([40.0, 20.0, 4.0]), device=cuda)
+    before = admm_chunk.admm_chunk.launches
+    starts = np.array([[2.0, 10.0, 2.0], [2.0, 17.0, 2.0]])
+    goals = np.array([[38.0, 10.0, 2.0], [38.0, 3.0, 2.0]])
+    out = planner.plan_many(pmap, starts, goals, net, None, mcfg,
+                            dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert admm_chunk.admm_chunk.launches == before + mcfg.solver.n_chunks
+    segs = out.traj.seg_mask.sum(-1).cpu().numpy()
+    assert (out.corridor_ok & out.result.solved.cpu().numpy()
+            & (segs > 5)).any()
 
 
 @pytest.mark.gpu
@@ -132,11 +256,14 @@ def test_kernel_smem_needs_opt_in(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kw", [dict(res=60), dict(res=4, max_faces=60)])
+@pytest.mark.parametrize("kw", [dict(res=100), dict(res=40, max_seg=10),
+                                dict(res=4, max_faces=60)])
 def test_kernel_raises_on_a_shape_it_cannot_take(cuda, kw):
-    """res=60: one scenario's state exceeds a block's shared memory;
-    60 faces + 12 box slots exceed the 64 a row's warp handles.  The
-    wrapper and solve_qp raise; nothing runs the plain version instead."""
+    """res=100 (S = 5) and res=40 at S = 10: the fixed part and one
+    scenario's z / yh slots alone exceed what a block may opt in to (Kx
+    could stay in device memory, the slots cannot); 60 faces + 12 box
+    slots exceed the 64 a row's warp handles.  The wrapper and solve_qp
+    raise; nothing runs the plain version instead."""
     cfg, scfg = QPConfig(**kw), SolverConfig(n_chunks=1, iters_per_chunk=2)
     _, data = _data(cfg, 2, 0, cuda)
     before = admm_chunk.admm_chunk.launches

@@ -8,6 +8,8 @@ shape.  Skips without a CUDA device.  Run on the card with
 This file imports no JAX, so it runs where only PyTorch is installed."""
 
 import copy
+import dataclasses
+import json
 import os
 
 import numpy as np
@@ -27,6 +29,9 @@ CFG = config.TRAIN            # order 4, res 10, v <= 5, a <= 7; 3 x 150
 B = 32                        # TrainConfig.batch_size
 # kernel vs plain, of each array's largest entry (tests/test_torch_gpu_kernel.py)
 TOL = 5e-4
+# TRAIN at ten segments with the seq10 net (config.SEQ10's model)
+CFG10 = dataclasses.replace(
+    CFG, qp=dataclasses.replace(CFG.qp, max_seg=10), model=config.SEQ10.model)
 
 
 @pytest.fixture
@@ -162,3 +167,69 @@ def test_trainer_epoch_on_the_card(cuda, tmp_path):
                 for k, p in tr.net.state_dict().items())
     assert 0 < moved < 1
     assert trainer.latest_checkpoint(tr.ckpt_dir).endswith("checkpoint2.pt")
+
+
+@pytest.mark.gpu
+def test_seq10_trainer_step_matches_cpu(cuda, tmp_path):
+    """One Trainer step of the shipped seq10 net at max_seg=10 (TRAIN's QP
+    and budget) on the card: n_chunks kernel launches, the weights move,
+    and the step's loss is the card's loss of that batch; that loss and
+    its gradients agree with the CPU's plain path as in
+    test_training_step_matches_cpu (on the scenarios whose solved flags
+    agree; losses to rtol 1e-3, gradients to 1e-2 of each tensor's
+    largest entry)."""
+    def net10():
+        net = ConvLSTMAllocNet(10, 256, CFG10.model.token_thresh)
+        net.load_state_dict(weights.load_params(
+            os.path.join(ROOT, "data/params/seq10_rest2rest.msgpack")))
+        return net
+
+    sc = scenarios.random_scenarios(CFG10.qp, 40, seed=41, min_seg=1)
+    loader = dataset.Loader(sc, batch_size=B, train_ratio=0.8, seed=0)
+    first = next(loader.epoch(0))
+    f = lambda a, dev: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    batches = {dev: (f(first.state, dev), f(first.hpolys, dev),
+                     torch.as_tensor(first.seg, device=dev).long(),
+                     f(first.ref_times, dev)) for dev in ("cpu", cuda)}
+    nets = {"cpu": net10(), cuda: net10().to(cuda)}
+    flags = {}
+    for dev, net in nets.items():
+        with torch.no_grad():
+            flags[dev] = train_step.forward(net, CFG10.qp, CFG10.solver,
+                                            *batches[dev][:3])[2].solved.cpu()
+    keep = flags["cpu"] == flags[cuda]
+    assert int(keep.sum()) >= B - 1
+    idx = torch.nonzero(keep)[:, 0]
+    grads, totals = [], []
+    for dev, net in nets.items():
+        sub = [t[idx.to(t.device)] for t in batches[dev]]
+        total, _ = train_step.loss_fn(net, CFG10.qp, CFG10.solver, CFG10.loss,
+                                      *sub, CFG10.model.token_thresh)
+        total.backward()
+        totals.append(float(total.detach()))
+        grads.append({k: p.grad.cpu() for k, p in net.named_parameters()})
+    assert np.isfinite(totals).all()
+    np.testing.assert_allclose(totals[1], totals[0], rtol=1e-3)
+    for k, g in grads[0].items():
+        assert torch.isfinite(grads[1][k]).all(), k
+        scale = float(g.abs().max())
+        assert float((grads[1][k] - g).abs().max()) <= 1e-2 * scale + 1e-8, k
+
+    net = net10().to(cuda)
+    with torch.no_grad():
+        card_total = float(train_step.loss_fn(
+            net, CFG10.qp, CFG10.solver, CFG10.loss, *batches[cuda],
+            CFG10.model.token_thresh)[0])
+    start = copy.deepcopy(net.state_dict())
+    tr = trainer.Trainer(CFG10, net, loader, str(tmp_path))
+    before = admm_chunk.admm_chunk.launches
+    tr.train(max_epochs=1)
+    torch.cuda.synchronize()
+    assert tr.step == 1          # one step of 32; 8 validation scenarios < 32
+    assert admm_chunk.admm_chunk.launches == before + CFG10.solver.n_chunks
+    with open(tr.log_path) as fh:
+        step = [json.loads(line) for line in fh if '"step"' in line][0]
+    assert abs(step["obj"] - card_total) <= 1e-4 * max(1.0, abs(card_total))
+    moved = max(float((p.cpu() - start[k].cpu()).abs().max())
+                for k, p in tr.net.state_dict().items())
+    assert 0 < moved < 1
