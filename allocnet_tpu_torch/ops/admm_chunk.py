@@ -32,52 +32,33 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from allocnet_tpu_torch.config import QPConfig, SolverConfig
-from allocnet_tpu_torch.ops import admm, qp
+from allocnet_tpu_torch.ops import _cuda_build, admm, qp
 from allocnet_tpu_torch.utils import scenarios
 
 BOX_SLOTS = 12
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "admm_chunk.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCE = _cuda_build.CSRC / "admm_chunk.cu"
+BUILD_DIR = _cuda_build.BUILD_DIR
 
 
 # ---------------------------------------------------------------------------
-# build and load (nvcc -> plain-C shared library -> ctypes), at first use
+# build and load (ops/_cuda_build.py), at first use
 # ---------------------------------------------------------------------------
-
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/admm_chunk.cu")
-    return path
-
 
 def _flags(profile: bool) -> list:
-    return NVCC_FLAGS + (["-DADMM_CHUNK_PROFILE"] if profile else [])
+    return _cuda_build.NVCC_FLAGS + (["-DADMM_CHUNK_PROFILE"] if profile
+                                     else [])
 
 
 def library_name(profile: bool = False) -> str:
     """File name of the built library: keyed by a hash of the source and
     the flags, so an edit of either builds anew."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(_flags(profile)).encode()).hexdigest()
-    return f"admm_chunk_{key[:16]}.so"
+    return _cuda_build.library_name("admm_chunk", SOURCE, _flags(profile))
 
 
 def set_build_dir(path) -> None:
@@ -95,30 +76,8 @@ def build(profile: bool = False) -> dict:
     cycle counts (-DADMM_CHUNK_PROFILE).  Returns {'path', 'seconds',
     'ptxas'}: build wall time (0 if it was already built) and the
     `-Xptxas -v` report (registers, shared memory, spills)."""
-    flags = _flags(profile)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / library_name(profile)
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return {"path": str(lib), "seconds": 0.0,
-                "ptxas": log.read_text() if log.exists() else ""}
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *flags, "-o", tmp, str(SOURCE)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, lib)          # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    report = res.stdout + res.stderr
-    log.write_text(report)
-    return {"path": str(lib), "seconds": time.perf_counter() - t0,
-            "ptxas": report}
+    return _cuda_build.build("admm_chunk", SOURCE, _flags(profile),
+                             BUILD_DIR)
 
 
 @functools.cache

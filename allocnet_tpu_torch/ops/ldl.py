@@ -11,28 +11,96 @@ block size nb: unblocked LDL^T of the diagonal block, a triangular solve for
 the panel, a GEMM for the trailing update.  In f32 the raw factor is only
 ~1e-2 accurate through the tiny pivots; the polish's iterative refinement
 restores full accuracy.
+
+The diagonal block is the operator `allocnet_torch::ldl_block`
+(`ldl_block`): on a card the hand-written kernel csrc/ldl_block.cu (one
+launch per block; the JAX package runs a `lax.fori_loop` inside its jitted
+programs), on the CPU its plain version `ldl_block_reference`.  The panel's
+triangular solve, the trailing GEMM and `ldl_solve`'s two triangular
+solves are library calls, as JAX leaves them to XLA.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from pathlib import Path
+
 import torch
 
+from allocnet_tpu_torch.ops import _cuda_build
 
-def _ldl_unblocked(Kb: torch.Tensor, sign: torch.Tensor, reg: float):
+SOURCE = _cuda_build.CSRC / "ldl_block.cu"
+BUILD_DIR = _cuda_build.BUILD_DIR
+# IEEE products and differences, no FMA contraction: the kernel's
+# arithmetic is the plain operator's, in its order (csrc/ldl_block.cu)
+NVCC_FLAGS = _cuda_build.NVCC_FLAGS + ["-fmad=false"]
+MAX_NB = 64
+
+
+# ---------------------------------------------------------------------------
+# build and load (ops/_cuda_build.py), at first use
+# ---------------------------------------------------------------------------
+
+def library_name() -> str:
+    """File name of the built library: keyed by a hash of the source and
+    the flags."""
+    return _cuda_build.library_name("ldl_block", SOURCE, NVCC_FLAGS)
+
+
+def set_build_dir(path) -> None:
+    """Build into (and load from) `path` from now on."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    build.cache_clear()
+    _library.cache_clear()
+
+
+@functools.cache
+def build() -> dict:
+    """Compile csrc/ldl_block.cu into BUILD_DIR unless that library exists
+    there.  Returns {'path', 'seconds', 'ptxas'} (`_cuda_build.build`)."""
+    return _cuda_build.build("ldl_block", SOURCE, NVCC_FLAGS, BUILD_DIR)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build()["path"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ldl_block_launch.argtypes = [i, i, ctypes.c_float] + [p] * 5
+    lib.ldl_block_launch.restype = i
+    lib.ldl_block_error_string.argtypes = [i]
+    lib.ldl_block_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# the diagonal block: the operator, its kernel and its plain version
+# ---------------------------------------------------------------------------
+
+def ldl_block(Kb: torch.Tensor, sign: torch.Tensor, reg: float):
     """LDL^T of a (B, nb, nb) symmetric block, no pivoting.  Pivots smaller
     than `reg` are bumped to sign * reg (QDLDL-style); a large pivot keeps
-    its value even if rounding flipped its sign.  Returns (L unit lower, d).
+    its value even if rounding flipped its sign.  Returns (L unit lower,
+    d), d the unbumped diagonal.  The port of the JAX `_ldl_unblocked`.
 
-    Runs as the registered operator `allocnet_torch::ldl_block`, so that a
-    program exported with `torch.export` holds one node per diagonal block
-    instead of the ~20 of each column (the polish factors up to 12 KKT
-    systems of 256 columns per solve); the operator runs this same code."""
+    Runs the registered operator `allocnet_torch::ldl_block`: on CUDA
+    tensors the kernel csrc/ldl_block.cu (f32, nb <= 64; one launch per
+    block, counted in `ldl_block.launches`) or an error, on CPU tensors
+    `ldl_block_reference`.  A program exported with `torch.export` holds
+    one node per diagonal block."""
     return torch.ops.allocnet_torch.ldl_block(Kb, sign, float(reg))
 
 
-@torch.library.custom_op("allocnet_torch::ldl_block", mutates_args=())
-def _ldl_block(Kb: torch.Tensor, sign: torch.Tensor,
-               reg: float) -> tuple[torch.Tensor, torch.Tensor]:
+ldl_block.launches = 0
+_counted = ldl_block      # keeps counting when a caller wraps `ldl_block`
+
+
+def ldl_block_reference(Kb: torch.Tensor, sign: torch.Tensor, reg: float):
+    """The plain version of the kernel: the JAX loop over columns as
+    batched tensor ops (~15 launches per column on a card), on any device
+    and float dtype.  Divides by the pivot where JAX multiplies by its
+    reciprocal."""
     B, NB, _ = Kb.shape
     K = Kb.clone()
     ar = torch.arange(NB, device=K.device)
@@ -49,7 +117,62 @@ def _ldl_block(Kb: torch.Tensor, sign: torch.Tensor,
     return L, d
 
 
-@_ldl_block.register_fake
+def _check(Kb: torch.Tensor, sign: torch.Tensor):
+    if Kb.dim() != 3 or Kb.shape[1] != Kb.shape[2] or Kb.shape[1] < 1:
+        raise ValueError(f"ldl_block: K has shape {tuple(Kb.shape)}, needs "
+                         f"(B, nb, nb)")
+    if tuple(sign.shape) != (Kb.shape[1],):
+        raise ValueError(f"ldl_block: sign has shape {tuple(sign.shape)}, "
+                         f"needs ({Kb.shape[1]},)")
+    if sign.device != Kb.device:
+        raise ValueError(f"ldl_block: sign on {sign.device}, K on "
+                         f"{Kb.device}")
+    if sign.dtype != Kb.dtype:
+        raise TypeError(f"ldl_block: sign is {sign.dtype}, K {Kb.dtype}")
+    if not (Kb.is_contiguous() and sign.is_contiguous()):
+        raise ValueError("ldl_block: K and sign must be contiguous")
+
+
+@torch.library.custom_op("allocnet_torch::ldl_block", mutates_args=(),
+                         device_types="cpu")
+def _ldl_block_op(Kb: torch.Tensor, sign: torch.Tensor,
+                  reg: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operator on CPU tensors: the plain version (f32, and f64 for
+    the CPU's f64 solves)."""
+    _check(Kb, sign)
+    if Kb.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"ldl_block: K is {Kb.dtype}")
+    return ldl_block_reference(Kb, sign, reg)
+
+
+@_ldl_block_op.register_kernel("cuda")
+def _ldl_block_cuda(Kb, sign, reg):
+    """The operator on CUDA tensors: one launch of the kernel or an
+    error."""
+    _check(Kb, sign)
+    B, NB, _ = Kb.shape
+    if Kb.dtype != torch.float32:
+        raise TypeError(f"ldl_block: the kernel is float32, K is {Kb.dtype}")
+    if NB > MAX_NB:
+        raise ValueError(f"ldl_block: the kernel takes blocks of at most "
+                         f"{MAX_NB} columns, not {NB}")
+    L = torch.empty_like(Kb)
+    d = Kb.new_empty((B, NB))
+    lib = _library()
+    with torch.cuda.device(Kb.device):
+        stream = torch.cuda.current_stream(Kb.device).cuda_stream
+        err = lib.ldl_block_launch(B, NB, float(reg), Kb.data_ptr(),
+                                   sign.data_ptr(), L.data_ptr(),
+                                   d.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"ldl_block: launch failed at B={B} nb={NB}: "
+                           f"cudaError {err} "
+                           f"({lib.ldl_block_error_string(err).decode()})")
+    _counted.launches += 1
+    return L, d
+
+
+@_ldl_block_op.register_fake
 def _ldl_block_fake(Kb, sign, reg):
     return torch.empty_like(Kb), Kb.new_empty(Kb.shape[:2])
 
@@ -74,7 +197,8 @@ def ldl_factor(K: torch.Tensor, nb: int = 64, n_pos: int | None = None,
     L = torch.zeros_like(K)
     d = K.new_zeros((B, N))
     for s in range(0, N, nb):
-        Lkk, dk = _ldl_unblocked(K[:, s:s + nb, s:s + nb], sign[s:s + nb], reg)
+        Lkk, dk = ldl_block(K[:, s:s + nb, s:s + nb].contiguous(),
+                            sign[s:s + nb], reg)
         L[:, s:s + nb, s:s + nb] = Lkk
         d[:, s:s + nb] = dk
         if s + nb < N:

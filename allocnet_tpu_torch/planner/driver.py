@@ -25,8 +25,8 @@ What differs from the JAX module:
 * the fast start (`enable_compilation_cache`, `Driver(cache_dir=,
   aot_path=)`, `save_aot`) keeps prebuilt libraries, not serialized
   programs: the port traces and compiles nothing, and what a fresh process
-  pays before its first tick is the `nvcc` build of the kernel and the
-  `g++` build of the native runtime;
+  pays before its first tick is the `nvcc` builds of the two kernels and
+  the `g++` build of the native runtime;
 * `onchip_tick_cost` chains the ticks in a Python loop (no `lax.scan`)
   that reads nothing back to the host until the last tick.
 
@@ -53,7 +53,7 @@ import torch
 from allocnet_tpu_torch.config import AllocNetConfig, SolverConfig
 from allocnet_tpu_torch.models import packing
 from allocnet_tpu_torch.models.networks import bind
-from allocnet_tpu_torch.ops import admm, admm_chunk, qp
+from allocnet_tpu_torch.ops import admm, admm_chunk, ldl, qp
 from allocnet_tpu_torch.planner import control, native, replan, trajectory
 from allocnet_tpu_torch.planner import refine as refine_lib
 from allocnet_tpu_torch.utils.device import resolve_device
@@ -519,16 +519,18 @@ def make_cold_tick(net, cfg: AllocNetConfig, params, rate_hz: float = 10.0,
 # ---------------------------------------------------------------------------
 
 def enable_compilation_cache(cache_dir: str) -> None:
-    """Build the kernel (nvcc) and the native runtime (g++) into
+    """Build the two kernels (nvcc) and the native runtime (g++) into
     `cache_dir` and load them from there: a directory kept between
     processes builds each library once (the libraries are keyed by a hash
     of their source and flags)."""
     os.makedirs(cache_dir, exist_ok=True)
-    admm_chunk.set_build_dir(cache_dir)
-    native.set_build_dir(cache_dir)
+    for mod in _AOT_LIBS.values():
+        mod.set_build_dir(cache_dir)
 
 
-_AOT_LIBS = {"kernel": admm_chunk, "native": native}
+# the libraries of the fast start: the ADMM chunk kernel, the polish's
+# LDL^T block kernel, the native runtime
+_AOT_LIBS = {"kernel": admm_chunk, "ldl": ldl, "native": native}
 
 
 def _aot_manifest(cfg: AllocNetConfig, params: dict, device) -> dict:
@@ -536,7 +538,7 @@ def _aot_manifest(cfg: AllocNetConfig, params: dict, device) -> dict:
     valid for the same sources (their names carry the hashes), torch
     version and card; the config repr and the params digest pin the
     checkpoint the artefact flies (a stale artefact must not fly an old
-    network).  No kernel library on the CPU."""
+    network).  No kernel libraries on the CPU."""
     h = hashlib.sha256()
     for k, v in sorted(params.items()):
         h.update(k.encode())
@@ -549,6 +551,7 @@ def _aot_manifest(cfg: AllocNetConfig, params: dict, device) -> dict:
                            if cuda else None),
             "cfg": repr(cfg), "params_sha": h.hexdigest()[:16],
             "kernel": admm_chunk.library_name() if cuda else None,
+            "ldl": ldl.library_name() if cuda else None,
             "native": native.library_name()}
 
 
@@ -588,7 +591,7 @@ class Driver:
     Bernstein certificate at the mission limits (certify=True checks
     every accepted plan, outside the timed region).
 
-    cache_dir: where the kernel and the native runtime are built and
+    cache_dir: where the kernels and the native runtime are built and
     loaded from (`enable_compilation_cache`).  aot_path: a directory that
     `save_aot` wrote; when its manifest matches, its prebuilt libraries
     are taken and `aot_loaded` is True, so the first tick builds nothing;
@@ -622,15 +625,16 @@ class Driver:
 
     def save_aot(self, path: str) -> dict:
         """Run a cold and a warm tick (`prewarm`: builds and launches the
-        kernel on a card), then save the built kernel library (none on the
-        CPU), the built native runtime and a manifest (`_aot_manifest`)
+        kernels on a card), then save the built kernel libraries (none on
+        the CPU), the built native runtime and a manifest (`_aot_manifest`)
         into `path`.  A later process constructed with aot_path=<path>
-        builds neither.  Returns {library kind: bytes}."""
+        builds none of them.  Returns {library kind: bytes}."""
         os.makedirs(path, exist_ok=True)
         self.prewarm()
         libs = {"native": native.build()}
         if self.device.type == "cuda":
             libs["kernel"] = admm_chunk.build()["path"]
+            libs["ldl"] = ldl.build()["path"]
         sizes = {}
         for kind, src in libs.items():
             dst = os.path.join(path, os.path.basename(src))
@@ -673,7 +677,7 @@ class Driver:
 
     def prewarm(self, goal_dist: float = 5.0):
         """Run a cold and a warm tick on a dummy box corridor
-        (`_aot_dummy_args`): builds the kernel and warms the allocator and
+        (`_aot_dummy_args`): builds the kernels and warms the allocator and
         cuDNN before the first real tick."""
         args = _aot_dummy_args(self.cfg, goal_dist, self.device)
         _, _, _, adv = self._cold(*args)

@@ -6,7 +6,9 @@ Runs `allocnet_tpu_torch.ops.admm.solve_qp` on the deploy batch (B=1024,
 `QPConfig()`, `SolverConfig()`, bench.py's seed 123) under
 `torch.profiler`, after a warm-up, and prints the device time by kernel
 name (largest first), the number of kernel launches, the wall time of the
-profiled solves and the share of it the device spent idle.  Then it runs
+profiled solves and the share of it the device spent idle, and the device
+time and launches of the port's two hand-written kernels (K1 admm_chunk,
+L1 ldl_block, the polish's LDL^T diagonal block).  Then it runs
 one deploy chunk (150 iterations from the solve's first state) through the
 profile build of the admm_chunk kernel and prints its per-phase SM cycles
 (mean over blocks): each phase's wall cycles per iteration (load and store
@@ -21,8 +23,8 @@ DEPLOY with the same net: the first mission that chip_smoke.py flies
 (map 0 of scripts/drive_eval.py, missions sampled with seed 1), its
 cold tick and its first warm tick, each repeated from the same state,
 with the host time of the tick's parts (QP assembly, the ADMM chunks,
-polish and its LDL factor and solves, residuals, the advance, the
-certificate) from profiler ranges.
+polish and its LDL factor, diagonal blocks and solves, residuals, the
+advance, the certificate) from profiler ranges.
 
     python3 -m allocnet_tpu_torch.utils.profile_solve [--reps 3] [--top 25]
         [--ticks-only]
@@ -80,11 +82,21 @@ def main():
     return 0
 
 
+# the port's hand-written kernels, by the name of their __global__
+# function: csrc/admm_chunk.cu (K1), csrc/ldl_block.cu (L1)
+HAND_WRITTEN = {"admm_chunk_kernel": "K1 admm_chunk",
+                "ldl_block_kernel": "L1 ldl_block"}
+
+
 def profile_device(fn, reps, top, unit, what, sections=()):
     """Run fn `reps` times under torch.profiler and print the wall time,
-    device busy time, idle share and launches per call, and the device
-    time by kernel name; then, for each name in `sections` (record_function
-    ranges that fn opens), its host time per call and share of the wall."""
+    device busy time, idle share and launches per call, the device time
+    and launches per call of each hand-written kernel (HAND_WRITTEN), and
+    the `top` kernel names by device time; then, for each name in
+    `sections` (record_function ranges that fn opens), its host time per
+    call and share of the wall.  Returns {'wall_ms', 'busy_ms', 'idle',
+    'launches', and per hand-written kernel name its (ms, launches)}, per
+    call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -110,11 +122,23 @@ def profile_device(fn, reps, top, unit, what, sections=()):
             by_name[ev.name] += ev.time_range.elapsed_us()
             count[ev.name] += 1
     busy = sum(by_name.values())
-    print(f"{reps} {what}: wall {wall_us / 1e3 / reps:.2f} ms per {unit}, "
-          f"device busy {busy / 1e3 / reps:.2f} ms per {unit}, "
-          f"idle share {1 - busy / wall_us:.3f}, "
-          f"{sum(count.values()) // reps} kernel launches per {unit}")
-    print(f"{'device ms/' + unit:>16} {'share':>6} {'launches':>9}  kernel")
+    out = {"wall_ms": wall_us / 1e3 / reps, "busy_ms": busy / 1e3 / reps,
+           "idle": 1 - busy / wall_us,
+           "launches": sum(count.values()) / reps}
+    print(f"{reps} {what}: wall {out['wall_ms']:.2f} ms per {unit}, "
+          f"device busy {out['busy_ms']:.2f} ms per {unit}, "
+          f"idle share {out['idle']:.3f}, "
+          f"{out['launches']:g} kernel launches per {unit}")
+    for key, label in HAND_WRITTEN.items():
+        names = [n for n in by_name if key in n]
+        out[key] = (sum(by_name[n] for n in names) / 1e3 / reps,
+                    sum(count[n] for n in names) / reps)
+        print(f"  {label}: {out[key][0]:.3f} device ms per {unit} "
+              f"({out[key][0] / max(out['busy_ms'], 1e-9):.3f} of busy), "
+              f"{out[key][1]:g} launches per {unit}")
+    if top:
+        print(f"{'device ms/' + unit:>16} {'share':>6} {'launches':>9}  "
+              f"kernel")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"{t / 1e3 / reps:16.3f} {t / busy:6.3f} "
               f"{count[name] // reps:9d}  {name[:100]}")
@@ -124,6 +148,7 @@ def profile_device(fn, reps, top, unit, what, sections=()):
         for name in sections:
             print(f"{host[name] / 1e3 / reps:16.3f} {host[name] / wall_us:6.3f} "
                   f"{host_n[name] // reps:9d}  {name}")
+    return out
 
 
 def profile_train(dev, reps, top):
@@ -203,7 +228,8 @@ def profile_ticks(dev, reps, top):
     from allocnet_tpu_torch.ops import admm, admm_chunk, ldl, qp
     from allocnet_tpu_torch.planner import trajectory
     wrapped = [(qp, "build_qp"), (admm_chunk, "admm_solve_chunked"),
-               (admm, "polish"), (ldl, "ldl_factor"), (ldl, "ldl_solve"),
+               (admm, "polish"), (ldl, "ldl_factor"), (ldl, "ldl_block"),
+               (ldl, "ldl_solve"),
                (admm, "_full_residuals"), (driver, "_advance"),
                (trajectory, "certify_box_host")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in wrapped]

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (allocnet_tpu_torch) on one NVIDIA
-card: builds the admm_chunk kernel from csrc/ (no register spills), holds
-it against its plain PyTorch version at the deploy shape, on batches that
-take each of its routes (padded parts skipped or not, Kx in shared or
-device memory) and at the training shape, solves the deploy QP batch
+card: builds its two kernels from csrc/ (admm_chunk and the polish's LDL^T
+block, ldl_block; one nvcc each, started together; no register spills),
+holds admm_chunk against its plain PyTorch version at the deploy shape, on
+batches that take each of its routes (padded parts skipped or not, Kx in
+shared or device memory) and at the training shape, solves the deploy QP batch
 through it (bench.py's accuracy gates), serves plan_batch requests with the
 shipped seq5 ConvLSTM weights, trains that net through the QP for one
 epoch (Trainer, TRAIN operating point), refines one request's segment
@@ -20,8 +21,14 @@ exports the net as TorchScript and the replanning step as a
 processes to their first tick with and without the prebuilt libraries of
 `Driver.save_aot`, chains 20 ticks on the card (`onchip_tick_cost`), runs
 the solve-scaling sweep on the card and holds the kernel against its
-plain version at the certify shape and at order 3 (min-jerk).  Prints one
-JSON line per kernel and a final status line.
+plain version at the certify shape and at order 3 (min-jerk).  Then the
+ten-segment operating point, and last the `ldl` phase: ldl_block against
+its plain version on the diagonal blocks that the polish factored on the
+way (deploy solve, cold, warm and rescue ticks, certify, S=10) and on
+random and non-finite blocks, and all kernel launches per factorization,
+solve and tick with the plain version on the card and with the kernel.
+Every path counts both kernels' launches and fails if one did not launch.
+Prints one JSON line with both kernels and a final status line.
 
     python3 chip_smoke.py
 
@@ -34,6 +41,7 @@ runtime builds in allocnet_tpu_torch/_build/ and temporary directories.
 Imports neither JAX nor the JAX package, nor h5py or matplotlib.
 """
 
+import concurrent.futures
 import importlib.util
 import json
 import os
@@ -98,8 +106,35 @@ MAZE_STARTS = ((2.0, 10.0, 2.0), (2.0, 17.0, 2.0))
 MAZE_GOALS = ((38.0, 10.0, 2.0), (38.0, 3.0, 2.0))
 
 
+# the two kernels' wrappers (set in main): each counts its own launches
+K1 = L1 = None
+# L1's launches on each path of the run, and the polish blocks captured for
+# the ldl phase (`record_ldl`)
+LDL_LAUNCHES = {}
+LDL_REC = {"tag": None, "blocks": {}, "factor": {}}
+LDL_REPS = 20
+# L1 against its plain version where they are not equal bit for bit: of
+# each column's largest entry, on blocks without and with bumped pivots
+LDL_TOL, LDL_TOL_BUMPED = 1e-6, 1e-4
+
+
 def phase(name, t0):
     print(f"[{name}] {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def zero_counts():
+    """Both kernels' launch counts to 0, just before a path runs."""
+    K1.launches = L1.launches = 0
+
+
+def l1_ran(path, n=None):
+    """L1's launches on `path` (since `zero_counts`, or `n`), kept in
+    LDL_LAUNCHES; fails if it did not launch."""
+    n = L1.launches if n is None else n
+    LDL_LAUNCHES[path] = n
+    if n < 1:
+        fail(f"the {path} path did not launch ldl_block")
+    return n
 
 
 def fail(msg):
@@ -146,6 +181,72 @@ def chunk_work(cfg, n_iters, aeq, normals, seg_mask):
     floats_out = n + 2 * NR * C + m
     nbytes = 4 * (batch * (floats_in + floats_out) + 3 * R * D)
     return flops, nbytes
+
+
+def ldl_work(B, NB):
+    """(operations, bytes) of one ldl_block launch on B blocks of NB
+    columns.  Per block: two products and a difference for each entry of
+    the lower triangle that a column's update touches (sum over j of
+    (NB - j)(NB - j - 1) / 2) and one divide for each entry of L below the
+    diagonal; the work does not depend on the data (no column ends early).
+    Bytes: K read once and L written once (B NB^2 f32 each), d written
+    once, the signs read once."""
+    upd = sum((NB - j) * (NB - j - 1) // 2 for j in range(NB))
+    return B * (3 * upd + NB * (NB - 1) // 2), 4 * (2 * B * NB * NB + B * NB
+                                                    + NB)
+
+
+def ldl_compare(got, want, reg, what):
+    """L1's (L, d) against the plain version's on the finite scenarios of
+    the reference: (bitwise equal, max abs diff, max diff over its
+    column's largest entry, bumped pivots in the reference).  Fails above
+    LDL_TOL (LDL_TOL_BUMPED with bumped pivots) when not bitwise equal."""
+    import torch
+    (L, d), (rL, rd) = got, want
+    fin = torch.isfinite(rL).flatten(1).all(1) & torch.isfinite(rd).all(1)
+    L, d, rL, rd = L[fin], d[fin], rL[fin], rd[fin]
+    same = torch.equal(L, rL) and torch.equal(d, rd)
+    bumped = int((rd.abs() < reg).sum())
+    if not fin.any():
+        return same, 0.0, 0.0, bumped
+    absd = max(float((L - rL).abs().max()), float((d - rd).abs().max()))
+    col = rL.abs().amax(1).clamp_min(1e-30)
+    rel = max(float(((L - rL).abs().amax(1) / col).max()),
+              float(((d - rd).abs() / rd.abs().amax(1, keepdim=True)
+                     .clamp_min(1e-30)).max()))
+    if not same and rel > (LDL_TOL_BUMPED if bumped else LDL_TOL):
+        fail(f"ldl_block disagrees with its plain version on the {what} "
+             f"blocks: {rel:.3e} of a column's largest entry")
+    return same, absd, rel, bumped
+
+
+def record_ldl(ldl, L1):
+    """Wraps `ldl.ldl_factor` so that the first factorization under each
+    tag (LDL_REC['tag']; 'fly' tags by batch: cold B=3, warm B=1, rescue
+    B=4) keeps its K, signs and the diagonal blocks that reach L1."""
+    factor = ldl.ldl_factor
+
+    def recording_factor(K, **kw):
+        tag = LDL_REC["tag"]
+        if tag == "fly":
+            tag = {3: "cold tick", 1: "warm tick", 4: "rescue tick"}.get(
+                K.shape[0])
+        if tag is None or tag in LDL_REC["blocks"]:
+            return factor(K, **kw)
+        blocks = LDL_REC["blocks"][tag] = []
+        LDL_REC["factor"][tag] = (K.clone(), kw["sign"].clone(), kw["reg"])
+
+        def rec_block(Kb, sign, reg):
+            blocks.append((Kb.clone(), sign.clone(), reg))
+            return L1(Kb, sign, reg)
+
+        ldl.ldl_block = rec_block
+        try:
+            return factor(K, **kw)
+        finally:
+            ldl.ldl_block = L1
+
+    ldl.ldl_factor = recording_factor
 
 
 def kernel_check(k1, ref, a, what):
@@ -215,7 +316,7 @@ def first_tick(npz, cache_dir, aot_dir=None):
     from allocnet_tpu_torch import config
     from allocnet_tpu_torch.models import weights
     from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
-    from allocnet_tpu_torch.ops import admm_chunk
+    from allocnet_tpu_torch.ops import admm_chunk, ldl
     from allocnet_tpu_torch.planner import driver, native
 
     m = np.load(npz)
@@ -236,7 +337,8 @@ def first_tick(npz, cache_dir, aot_dir=None):
     print(json.dumps({"to_first_tick_s": to_tick, "solved": r.solved,
                       "builds_before_tick_s": tick_builds,
                       "builds_s": ran, "aot_loaded": drv.aot_loaded,
-                      "launches": admm_chunk.admm_chunk.launches}))
+                      "launches": admm_chunk.admm_chunk.launches,
+                      "ldl_launches": ldl.ldl_block.launches}))
     return 0
 
 
@@ -370,14 +472,17 @@ def application_phases(dev, drv, params, cold_inputs, mission):
     admm_chunk._launch = rec_launch
     timer = timing.PhaseTimer()
     torch.cuda.synchronize()
-    k1.launches = 0
+    zero_counts()
+    LDL_REC["tag"] = "certify"
     t1 = time.perf_counter()
     gen = datagen.generate(dcfg, DATAGEN_N, points=crops[0]["points"],
                            extent=DATAGEN_CROP, seed=DATAGEN_SEED,
                            device=dev, timer=timer)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t1
+    LDL_REC["tag"] = None
     launches["datagen"] = k1.launches
+    l1_ran("datagen")
     datagen.certified, planner.plan_corridors_batch = certified, plan_batch
     admm_chunk._launch = launch
     n_cand = sum(len(c[0]) for c in rec["cands"])
@@ -386,7 +491,8 @@ def application_phases(dev, drv, params, cold_inputs, mission):
           f"corridor went to certify, {len(gen.seg)} kept; stages ms "
           + ", ".join(f"{k} {v['total_s'] * 1e3:.1f}"
                       for k, v in timer.summary().items())
-          + f"; admm_chunk launches {launches['datagen']}")
+          + f"; admm_chunk launches {launches['datagen']}, ldl_block "
+          f"{LDL_LAUNCHES['datagen']}")
     if len(gen.seg) == 0 or not np.isfinite(gen.times).all():
         fail("generate kept no sample or gave non-finite times")
     if launches["datagen"] != config.CERTIFY_SOLVER.n_chunks:
@@ -518,14 +624,15 @@ def application_phases(dev, drv, params, cold_inputs, mission):
     else:
         fail("the replan step solves none of the 16 random scenarios")
     launches["replan_export"] = 0
-    n_solved = 0
+    n_solved, n_ldl = 0, 0
     for name, (st9, hp, sg), prev in cases:
         torch.cuda.synchronize()
-        k1.launches = 0
+        zero_counts()
         out = prog(st9, hp, sg.to(torch.int32), prev.coeffs, prev.have_prev)
         torch.cuda.synchronize()
         n_launch = k1.launches
         launches["replan_export"] += n_launch
+        n_ldl += l1_ran("replan_export")
         eager = replan.replan_step(net, None, dcfg, st9, hp, sg, prev,
                                    device=dev)
         n_solved += int(bool(out[2][0]) and bool(eager[2][0]))
@@ -533,7 +640,8 @@ def application_phases(dev, drv, params, cold_inputs, mission):
         rp_err = float(np.abs(c_p - c_e).max() / max(1.0, np.abs(c_e).max()))
         print(f"  program vs eager replan_step, {name}: solved "
               f"{bool(out[2][0])} / {bool(eager[2][0])}, coefficients "
-              f"{rp_err:.3e} of the largest; admm_chunk launches {n_launch}")
+              f"{rp_err:.3e} of the largest; admm_chunk launches {n_launch}"
+              f", ldl_block {LDL_LAUNCHES['replan_export']}")
         if (bool(out[2][0]) != bool(eager[2][0]) or rp_err > 1e-6
                 or not np.isfinite(c_p).all()):
             fail("the exported replan step differs from the eager one")
@@ -541,6 +649,7 @@ def application_phases(dev, drv, params, cold_inputs, mission):
             fail("the exported replan step did not launch admm_chunk")
     if n_solved == 0:
         fail("no compared replan step solved")
+    LDL_LAUNCHES["replan_export"] = n_ldl
     phase("export", t0)
 
     # ---- 11. fast start: prebuilt libraries, first tick in a new process --
@@ -573,7 +682,7 @@ def application_phases(dev, drv, params, cold_inputs, mission):
               f"{r['solved']}); compilers run before the tick "
               f"{r['builds_before_tick_s']}, in all {r['builds_s']} (s); "
               f"aot_loaded {r['aot_loaded']}; admm_chunk launches "
-              f"{r['launches']}")
+              f"{r['launches']}, ldl_block {r['ldl_launches']}")
     print(f"  artefact: {sizes} bytes")
     a, b = runs["aot"], runs["build"]
     if not a["aot_loaded"] or a["builds_s"] or b["aot_loaded"]:
@@ -589,20 +698,25 @@ def application_phases(dev, drv, params, cold_inputs, mission):
     if pdiff > 1e-6:
         fail("the two first ticks differ")
     launches["fast_start"] = a["launches"] + b["launches"]
+    if min(a["ldl_launches"], b["ldl_launches"]) < 1:
+        fail("a first tick did not launch ldl_block")
+    l1_ran("fast_start", a["ldl_launches"] + b["ldl_launches"])
     phase("fast_start", t0)
 
     # ---- 12. on-chip tick cost: a cold tick and 19 warm ticks ------------
     t0 = time.perf_counter()
     torch.cuda.synchronize()
-    k1.launches = 0
+    zero_counts()
     per_tick, solved_f, arrived_f = driver.onchip_tick_cost(
         ConvLSTMAllocNet(5, 256, token_thresh=0.5), params, dcfg,
         *cold_inputs, n_ticks=ONCHIP_TICKS, device=dev)
     launches["onchip"] = k1.launches
+    l1_ran("onchip")
     print(f"onchip: {ONCHIP_TICKS} ticks chained on the card: "
           f"{per_tick * 1e3:.1f} ms per tick, solved {solved_f:.4f}, "
           f"arrived {arrived_f:.1f}; admm_chunk launches {k1.launches} "
-          f"(4 cold + {ONCHIP_TICKS - 1} warm)")
+          f"(4 cold + {ONCHIP_TICKS - 1} warm), ldl_block "
+          f"{LDL_LAUNCHES['onchip']}")
     if not all(np.isfinite([per_tick, solved_f, arrived_f])):
         fail("onchip_tick_cost gave a non-finite number")
     if k1.launches != 4 + ONCHIP_TICKS - 1:
@@ -611,12 +725,14 @@ def application_phases(dev, drv, params, cold_inputs, mission):
 
     # ---- 13. scaling: the solve sweep on this one card -------------------
     t0 = time.perf_counter()
-    k1.launches = 0
+    zero_counts()
     sweep = scaling.solve_scaling(per_device_batch=B, device_counts=(1,),
                                   cfg=QPConfig(), scfg=SolverConfig(),
                                   device=dev)
     launches["scaling"] = k1.launches
-    print(f"scaling: {json.dumps(sweep)}; admm_chunk launches {k1.launches}")
+    l1_ran("scaling")
+    print(f"scaling: {json.dumps(sweep)}; admm_chunk launches {k1.launches}"
+          f", ldl_block {LDL_LAUNCHES['scaling']}")
     if sweep["platform"] != "gpu" or not sweep[1]["solves_per_sec"] > 0:
         fail("solve_scaling did not run on the card")
     phase("scaling", t0)
@@ -692,10 +808,13 @@ def seq10_phase(dev, qp_oracle):
     # ---- the S = 10 solve --------------------------------------------------
     t0 = time.perf_counter()
     torch.cuda.synchronize()
-    k1.launches = 0
+    zero_counts()
+    LDL_REC["tag"] = "S=10 solve"
     sol = admm.solve_qp(data, scfg)
     torch.cuda.synchronize()
+    LDL_REC["tag"] = None
     launches["seq10_solve"] = k1.launches
+    l1_ran("seq10_solve")
     if k1.launches != scfg.n_chunks:
         fail(f"the S=10 solve launched admm_chunk {k1.launches} times")
     solved = sol.solved.cpu().numpy()
@@ -732,7 +851,8 @@ def seq10_phase(dev, qp_oracle):
           f"normalized residual on the solved set {float(rel[solved].max()):.3e}"
           f"; f64 oracle: {checked} scenarios ({long_checked} with more than "
           f"5 segments), max coefficient diff {max_diff:.3e}; admm_chunk "
-          f"launches {launches['seq10_solve']}; ms per solve, 2 sets x 3: "
+          f"launches {launches['seq10_solve']}, ldl_block "
+          f"{LDL_LAUNCHES['seq10_solve']}; ms per solve, 2 sets x 3: "
           + ", ".join(f"{t:.2f}" for t in sets)
           + f" -> {B / (np.mean(sets) / 1e3):.1f} solves/s")
     if checked < ORACLE_N // 2 or long_checked == 0 or max_diff > 1e-3:
@@ -787,12 +907,13 @@ def seq10_phase(dev, qp_oracle):
     pipeline.plan_batch(net, cfg, scfg, req.state[:8], req.hpolys[:8],
                         req.seg[:8])                       # warm-up
     torch.cuda.synchronize()
-    k1.launches = 0
+    zero_counts()
     t1 = time.perf_counter()
     res = pipeline.plan_batch(net, cfg, scfg, req.state, req.hpolys, req.seg)
     torch.cuda.synchronize()
     serve_ms = (time.perf_counter() - t1) * 1e3
     launches["seq10_serve"] = k1.launches
+    l1_ran("seq10_serve")
     if k1.launches != scfg.n_chunks:
         fail(f"the seq10 plan_batch launched admm_chunk {k1.launches} times")
     if res.coeffs.shape != (B, cfg.max_seg, 3, cfg.D) or not bool(
@@ -809,7 +930,8 @@ def seq10_phase(dev, qp_oracle):
     print(f"seq10 plan_batch B={B}: {serve_ms:.1f} ms; solved "
           f"{float(res.solved.float().mean()):.4f}, ok "
           f"{float(res.ok.float().mean()):.4f}; admm_chunk launches "
-          f"{launches['seq10_serve']}; vs CPU on {n_ref}: times agree {t_ok}, "
+          f"{launches['seq10_serve']}, ldl_block {LDL_LAUNCHES['seq10_serve']}"
+          f"; vs CPU on {n_ref}: times agree {t_ok}, "
           f"solved flags agree on {s_agree}")
     if not t_ok or s_agree < n_ref - 1:
         fail("the seq10 plan_batch on the card disagrees with the CPU path")
@@ -817,12 +939,13 @@ def seq10_phase(dev, qp_oracle):
            req.seg[:SEQ10_REFINE_B])
     base = pipeline.plan_batch(net, cfg, scfg, *rin)
     torch.cuda.synchronize()
-    k1.launches = 0
+    zero_counts()
     t1 = time.perf_counter()
     ref = pipeline.plan_batch(net, cfg, scfg, *rin, refine_steps=2)
     torch.cuda.synchronize()
     refine_ms = (time.perf_counter() - t1) * 1e3
     launches["seq10_refine"] = k1.launches
+    l1_ran("seq10_refine")
     active = (torch.arange(cfg.max_seg, device=dev)[None, :]
               < torch.as_tensor(rin[2], device=dev)[:, None])
     tot_b = torch.where(active, torch.clamp_min(base.times, 0.05),
@@ -832,7 +955,8 @@ def seq10_phase(dev, qp_oracle):
     print(f"  refine_steps=2 at B={SEQ10_REFINE_B}: {refine_ms:.1f} ms; "
           f"solved {int(base.solved.sum())} -> {int(ref.solved.sum())}; "
           f"total time kept to {tot_err:.2e}; admm_chunk launches "
-          f"{launches['seq10_refine']}")
+          f"{launches['seq10_refine']}, ldl_block "
+          f"{LDL_LAUNCHES['seq10_refine']}")
     if (k1.launches != 5 * scfg.n_chunks or tot_err > 1e-4 or not kept
             or not bool(torch.isfinite(ref.coeffs).all())):
         fail("the seq10 refined plan_batch failed its checks")
@@ -851,7 +975,7 @@ def seq10_phase(dev, qp_oracle):
         pmap = planner.build_map(pts, lo, hi, scale=0.25, dilate_r=2,
                                  device=d)
         torch.cuda.synchronize()
-        k1.launches = 0
+        zero_counts()
         t1 = time.perf_counter()
         # corridors in f64, as the JAX package computes them in its test
         out[d] = planner.plan_many(pmap, starts, goals, net.to(d), None,
@@ -860,6 +984,7 @@ def seq10_phase(dev, qp_oracle):
         if d == dev:
             many_ms = (time.perf_counter() - t1) * 1e3
             launches["seq10_plan_many"] = k1.launches
+            l1_ran("seq10_plan_many")
     net.to(dev)
     g, c = out[dev], out["cpu"]
     segs = g.traj.seg_mask.sum(-1).cpu().numpy().astype(int)
@@ -870,7 +995,8 @@ def seq10_phase(dev, qp_oracle):
           f"{g_solved.tolist()} (CPU: {c.reasons}, "
           f"{c.traj.seg_mask.sum(-1).numpy().astype(int).tolist()}, "
           f"{c.result.solved.numpy().tolist()}); admm_chunk launches "
-          f"{launches['seq10_plan_many']}")
+          f"{launches['seq10_plan_many']}, ldl_block "
+          f"{LDL_LAUNCHES['seq10_plan_many']}")
     if launches["seq10_plan_many"] != mcfg.solver.n_chunks:
         fail("plan_many did not launch admm_chunk once per chunk")
     if g.reasons != c.reasons or not np.array_equal(
@@ -898,6 +1024,165 @@ def seq10_phase(dev, qp_oracle):
     return launches, shape
 
 
+def random_qd_blocks(B, dev, seed):
+    """Seeded quasi-definite (B, 64, 64) f32 blocks, 40 positive pivots and
+    24 negative, with pivots below the polish's reg (1e-5) in columns 5,
+    20, 45 and 50 (no coupling to the columns before them); and the
+    signs."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    W = rng.normal(size=(B, 64, 64))
+    K = W @ np.swapaxes(W, 1, 2) / 64 + np.eye(64)
+    K[:, 40:, 40:] = -K[:, 40:, 40:]
+    K[:, :40, 40:] *= 0.1
+    K[:, 40:, :40] *= 0.1
+    for j, v in ((5, 0.0), (20, 3e-8), (45, 2e-9), (50, -4e-7)):
+        K[:, j, :j] = K[:, :j, j] = 0.0
+        K[:, j, j] = v
+    sign = np.where(np.arange(64) < 40, 1.0, -1.0)
+    return (torch.tensor(K, dtype=torch.float32, device=dev),
+            torch.tensor(sign, dtype=torch.float32, device=dev))
+
+
+LDL_TAGS = ("deploy solve", "cold tick", "warm tick", "rescue tick",
+            "certify", "S=10 solve")
+
+
+def ldl_phase(dev, drv, tick_inputs, data, scfg):
+    """L1 against its plain version on the card: on every diagonal block of
+    the first polish factorization recorded under each of LDL_TAGS, on
+    random quasi-definite blocks with bumped pivots (B=1024) and on a batch
+    with two non-finite scenarios; ms per launch (CUDA events), the plain
+    version's ms, the bound (`ldl_work`).  The deploy solve's polish through
+    L1 against the same solve through the plain version.  Then all kernel
+    launches (torch.profiler) per factorization, deploy solve, cold tick
+    and warm tick with the plain version on the card (before) and with L1
+    (after), and the ticks' host ms both ways.  Returns (numbers by shape,
+    launch and time counts)."""
+    import numpy as np
+    import torch
+    from allocnet_tpu_torch.ops import admm, ldl
+    from allocnet_tpu_torch.utils import profile_solve
+
+    t0 = time.perf_counter()
+    ref = ldl.ldl_block_reference
+    shapes = {}
+    rb = random_qd_blocks(B, dev, SEED)
+    cases = [(tag, LDL_REC["blocks"].get(tag)) for tag in LDL_TAGS]
+    cases.append(("random, bumped pivots", [(*rb, 1e-5)]))
+    for tag, blocks in cases:
+        if not blocks:
+            fail(f"no {tag} factorization reached ldl_block")
+        same, absd, rel, bumped = True, 0.0, 0.0, 0
+        for Kb, sg, reg in blocks:
+            got = L1(Kb, sg, reg)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(got[0]).all())
+                    and bool(torch.isfinite(got[1]).all())):
+                fail(f"ldl_block gave non-finite values on the {tag} blocks")
+            r = ldl_compare(got, ref(Kb, sg, reg), reg, tag)
+            same, absd = same and r[0], max(absd, r[1])
+            rel, bumped = max(rel, r[2]), bumped + r[3]
+        Kb, sg, reg = blocks[0]
+        ms = cuda_ms(lambda: L1(Kb, sg, reg), reps=LDL_REPS, warmup=2)
+        pms = cuda_ms(lambda: ref(Kb, sg, reg), reps=3)
+        ops, nbytes = ldl_work(Kb.shape[0], Kb.shape[1])
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        shapes[tag] = {"B": int(Kb.shape[0]), "blocks": len(blocks),
+                       "ms": ms, "plain_ms": pms,
+                       "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes
+                       else "bytes", "bitwise": same, "max_abs_err": absd,
+                       "max_col_rel_err": rel, "bumped_pivots": bumped}
+        print(f"ldl: {tag}: {len(blocks)} blocks of B={Kb.shape[0]} x 64 x 64;"
+              f" kernel {ms:.4f} ms, plain {pms:.3f} ms per block, bound "
+              f"{max(t_ops, t_bytes):.5f} ms ({ops:.3e} operations, "
+              f"{nbytes:.3e} B); bitwise equal {same}, max abs diff "
+              f"{absd:.3e}, of a column's largest entry {rel:.3e}; bumped "
+              f"pivots {bumped}")
+
+    # non-finite input: scenario 1 a NaN below the diagonal, scenario 2 an
+    # inf above it
+    Kb, sg = random_qd_blocks(4, dev, SEED + 1)
+    Kb[1, 30, 12], Kb[2, 10, 33] = float("nan"), float("inf")
+    (L, d), (rL, rd) = L1(Kb, sg, 1e-5), ref(Kb, sg, 1e-5)
+    torch.cuda.synchronize()
+    strict = torch.tril(torch.ones(64, 64, dtype=torch.bool, device=dev), -1)
+    bad_ok = all(bool(torch.isnan(d[b]).all()) and bool(torch.isnan(
+        L[b][strict]).all()) and not bool(torch.isfinite(rd[b]).all())
+        for b in (1, 2))
+    good_ok = all(torch.equal(L[b], rL[b]) and torch.equal(d[b], rd[b])
+                  for b in (0, 3))
+    print(f"  non-finite scenarios 1 and 2 of 4: d NaN on the card, not "
+          f"finite in the plain version: {bad_ok}; scenarios 0 and 3 equal "
+          f"the plain version: {good_ok}")
+    if not bad_ok or not good_ok:
+        fail("ldl_block on non-finite input")
+
+    # the polish through L1 and through the plain version, same inputs
+    block = ldl.ldl_block
+    with torch.no_grad():
+        sol = admm.solve_qp(data, scfg)
+        ldl.ldl_block = ref
+        try:
+            plain = admm.solve_qp(data, scfg)
+        finally:
+            ldl.ldl_block = block
+    sol_diff = float((sol.coeffs - plain.coeffs).abs().max()) / max(
+        1.0, float(plain.coeffs.abs().max()))
+    flags_same = bool(torch.equal(sol.solved, plain.solved))
+    print(f"  deploy solve B={B}, polish through ldl_block vs the plain "
+          f"version: coefficients {sol_diff:.3e} of the largest, solved "
+          f"flags equal {flags_same}")
+    if sol_diff > 1e-5 or not flags_same:
+        fail("the polish through ldl_block differs from the plain version")
+
+    # launches per path before (the plain version on the card) and after
+    K, sg, reg = LDL_REC["factor"]["deploy solve"]
+    paths = {
+        "factorization": lambda: ldl.ldl_factor(K, nb=64, reg=reg, sign=sg),
+        "deploy solve": lambda: admm.solve_qp(data, scfg),
+        "cold tick": lambda: drv._cold(*tick_inputs["cold"]),
+        "warm tick": lambda: drv._tick(*tick_inputs["warm"])}
+    counts = {}
+    for way in ("before", "after"):
+        ldl.ldl_block = ref if way == "before" else block
+        try:
+            with torch.no_grad():
+                # a first profiler session after a long one lost most of
+                # its kernel events on the card: one session to discard
+                profile_solve.profile_device(paths["factorization"], 1, 0,
+                                             "call", "warm-up (discarded)")
+                for name, fn in paths.items():
+                    fn()
+                    torch.cuda.synchronize()
+                    c = profile_solve.profile_device(
+                        fn, 2, 0, name.split()[-1],
+                        f"{name} {way} (ldl_block "
+                        f"{'plain' if way == 'before' else 'kernel'})")
+                    counts[f"{name} {way}"] = c
+                for name in ("cold tick", "warm tick"):
+                    wall = []
+                    for _ in range(5 if name == "cold tick" else 10):
+                        t1 = time.perf_counter()
+                        paths[name]()
+                        torch.cuda.synchronize()
+                        wall.append((time.perf_counter() - t1) * 1e3)
+                    counts[f"{name} {way} host ms"] = wall
+                    print(f"  {name} {way}: host ms p50 "
+                          f"{np.percentile(wall, 50):.1f}, max "
+                          f"{max(wall):.1f} over {len(wall)}")
+        finally:
+            ldl.ldl_block = block
+    print("ldl: kernel launches (all kernels, torch.profiler) before -> "
+          "after: " + "; ".join(
+              f"{name} {counts[name + ' before']['launches']:g} -> "
+              f"{counts[name + ' after']['launches']:g}" for name in paths))
+    phase("ldl", t0)
+    return shapes, counts
+
+
 def main():
     import numpy as np
     import torch
@@ -912,7 +1197,7 @@ def main():
     from allocnet_tpu_torch.config import QPConfig, SolverConfig
     from allocnet_tpu_torch.models import weights
     from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
-    from allocnet_tpu_torch.ops import admm, admm_chunk, qp
+    from allocnet_tpu_torch.ops import admm, admm_chunk, ldl, qp
     from allocnet_tpu_torch.planner import (driver, pipeline, planner,
                                             replan, sfc)
     from allocnet_tpu_torch.train import datagen
@@ -925,6 +1210,9 @@ def main():
     qp_oracle = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(qp_oracle)
 
+    global K1, L1
+    K1, L1 = admm_chunk.admm_chunk, ldl.ldl_block
+    record_ldl(ldl, L1)
     t_all = time.perf_counter()
     dev = resolve_device()           # the card; TF32 off
     device_kind = torch.cuda.get_device_name(0)
@@ -936,16 +1224,21 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}",
           flush=True)
 
-    # ---- 1. build --------------------------------------------------------
+    # ---- 1. build: both kernels, one nvcc each, started together --------
     t0 = time.perf_counter()
-    info = admm_chunk.build()
-    print(f"admm_chunk build: {info['seconds']:.2f} s -> {info['path']}")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas:", line.strip())
-    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", info["ptxas"])
-    if not spills or any(int(v) for v in spills):
-        fail(f"ptxas reports register spills: {spills}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {"admm_chunk": pool.submit(admm_chunk.build),
+                  "ldl_block": pool.submit(ldl.build)}
+        builds = {k: f.result() for k, f in builds.items()}
+    for name, info in builds.items():
+        print(f"{name} build: {info['seconds']:.2f} s -> {info['path']}")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print("  ptxas:", line.strip())
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                            info["ptxas"])
+        if not spills or any(int(v) for v in spills):
+            fail(f"ptxas reports register spills in {name}: {spills}")
     print(f"  dynamic shared memory per block: "
           f"{admm_chunk.smem_bytes(QPConfig())} bytes; blocks (scenarios) "
           f"per SM: {admm_chunk.blocks_per_sm(QPConfig())}")
@@ -1024,9 +1317,12 @@ def main():
 
     # ---- 3. the deploy-point solve through the kernel ---------------------
     t0 = time.perf_counter()
-    admm_chunk.admm_chunk.launches = 0
+    zero_counts()
+    LDL_REC["tag"] = "deploy solve"
     sol = admm.solve_qp(data, scfg)
     torch.cuda.synchronize()
+    LDL_REC["tag"] = None
+    l1_ran("solve")
     if admm_chunk.admm_chunk.launches != scfg.n_chunks:
         fail(f"solve_qp launched admm_chunk "
              f"{admm_chunk.admm_chunk.launches} times, expected {scfg.n_chunks}")
@@ -1038,7 +1334,7 @@ def main():
     frac = float(solved.mean())
     max_rel = float(rel[solved].max())
     print(f"solve_qp B={B}: solved {frac:.4f}, max normalized residual "
-          f"{max_rel:.3e}")
+          f"{max_rel:.3e}; ldl_block launches {LDL_LAUNCHES['solve']}")
     if frac < 0.99:
         fail(f"solved fraction {frac:.4f} < 0.99")
     if max_rel >= 1e-3:
@@ -1076,7 +1372,7 @@ def main():
     pipeline.plan_batch(net, cfg, scfg, reqs[0].state, reqs[0].hpolys,
                         reqs[0].seg)           # warm-up (cuDNN, allocator)
     torch.cuda.synchronize()
-    admm_chunk.admm_chunk.launches = 0
+    zero_counts()
     results, req_ms = [], []
     for r in reqs:
         t1 = time.perf_counter()
@@ -1085,9 +1381,10 @@ def main():
         torch.cuda.synchronize()
         req_ms.append((time.perf_counter() - t1) * 1e3)
     launches = admm_chunk.admm_chunk.launches
+    l1_ran("serve")
     print(f"plan_batch: {REQUESTS} requests of B={B}, "
           + ", ".join(f"{t:.1f}" for t in req_ms) + " ms; admm_chunk "
-          f"launches {launches}")
+          f"launches {launches}, ldl_block {LDL_LAUNCHES['serve']}")
     if launches != REQUESTS * scfg.n_chunks:
         fail(f"plan_batch launched admm_chunk {launches} times, expected "
              f"{REQUESTS * scfg.n_chunks}")
@@ -1189,12 +1486,13 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         tr = trainer.Trainer(tcfg, tnet, loader, workdir)
         torch.cuda.synchronize()
-        admm_chunk.admm_chunk.launches = 0
+        zero_counts()
         t1 = time.perf_counter()
         tr.train(max_epochs=1)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t1
         train_launches = admm_chunk.admm_chunk.launches
+        l1_ran("train")
         with open(tr.log_path) as f:
             records = [json.loads(line) for line in f]
         ck = trainer.latest_checkpoint(tr.ckpt_dir)
@@ -1202,7 +1500,8 @@ def main():
     val = [r for r in records if r.get("split") == "val"]
     print(f"train: {len(steps)} steps of {tcfg.train.batch_size} and "
           f"{n_val} validation batch(es) in {train_s * 1e3:.1f} ms; admm_chunk "
-          f"launches {train_launches}; checkpoint {os.path.basename(ck)}")
+          f"launches {train_launches}, ldl_block {LDL_LAUNCHES['train']}; "
+          f"checkpoint {os.path.basename(ck)}")
     print("  step losses: " + ", ".join(f"{r['obj']:.4f}" for r in steps)
           + "; success " + ", ".join(f"{r['success_rate']:.3f}"
                                      for r in steps))
@@ -1276,12 +1575,13 @@ def main():
     base = pipeline.plan_batch(net.to(dev), cfg, scfg, *rin)
     pipeline.plan_batch(net, cfg, scfg, *rin, refine_steps=2)   # warm-up
     torch.cuda.synchronize()
-    admm_chunk.admm_chunk.launches = 0
+    zero_counts()
     t1 = time.perf_counter()
     ref = pipeline.plan_batch(net, cfg, scfg, *rin, refine_steps=2)
     torch.cuda.synchronize()
     refine_ms = (time.perf_counter() - t1) * 1e3
     refine_launches = admm_chunk.admm_chunk.launches
+    l1_ran("refine")
     if not bool(torch.isfinite(ref.coeffs).all()):
         fail("non-finite refined coefficients")
     if refine_launches != 5 * scfg.n_chunks:
@@ -1297,7 +1597,8 @@ def main():
                         base.times).sum(1)
     tot_err = float(((ref.times.sum(1) - tot_b).abs() / tot_b).max())
     print(f"refine: plan_batch B={REFINE_B}, refine_steps=2: "
-          f"{refine_ms:.1f} ms; admm_chunk launches {refine_launches}; "
+          f"{refine_ms:.1f} ms; admm_chunk launches {refine_launches}, "
+          f"ldl_block {LDL_LAUNCHES['refine']}; "
           f"solved {int(base.solved.sum())} -> {int(ref.solved.sum())}; on "
           f"the {int(both.sum())} solved both ways mean objective "
           f"{float(ob.mean()):.4f} -> {float(orf.mean()):.4f}, {improved} "
@@ -1381,33 +1682,39 @@ def main():
         return launch(lib, *a)
 
     per_call = {"cold": [], 0: [], 1: [], 2: []}    # launches per tick
+    l1_call = {"cold": [], 0: [], 1: [], 2: []}
     tick_inputs = {}
     cold_fn, tick_fn = drv._cold, drv._tick
 
     def cold_counted(*a):
         tick_inputs.setdefault("cold", [x.clone() for x in a])
-        n0 = k1.launches
+        n0, m0 = k1.launches, L1.launches
         out = cold_fn(*a)
         per_call["cold"].append(k1.launches - n0)
+        l1_call["cold"].append(L1.launches - m0)
         return out
 
     def tick_counted(*a):
         tick_inputs["warm"] = a
-        n0 = k1.launches
+        n0, m0 = k1.launches, L1.launches
         out = tick_fn(*a)
         per_call[out[4]].append(k1.launches - n0)
+        l1_call[out[4]].append(L1.launches - m0)
         return out
 
     drv._cold, drv._tick = cold_counted, tick_counted
     admm_chunk._launch = recording_launch
     flights = []
     torch.cuda.synchronize()
-    k1.launches = 0
+    zero_counts()
+    LDL_REC["tag"] = "fly"
     for start, goal, rseed, cp in missions:
         st = drv.reset(start, cp.route[-1], cp.hpolys, cp.seg)
         st, res = drv.run(st, MAX_TICKS, stop_when_done=True, stall_limit=5)
         flights.append((st, res))
+    LDL_REC["tag"] = None
     fly_launches = k1.launches
+    l1_ran("fly")
     admm_chunk._launch = launch
     drv._cold, drv._tick = cold_fn, tick_fn
 
@@ -1449,11 +1756,19 @@ def main():
           f"tick {launches_per['cold']} ({len(per_call['cold'])} ticks), per "
           f"warm tick {launches_per[0]} ({len(per_call[0])}), per light "
           f"rescue tick {launches_per[1]}, per heavy {launches_per[2]}")
+    l1_per = {k: sorted(set(v)) for k, v in l1_call.items()}
+    print(f"  ldl_block launches: {LDL_LAUNCHES['fly']} in the fly phase; per "
+          f"cold tick {l1_per['cold']}, per warm tick {l1_per[0]}, per light "
+          f"rescue tick {l1_per[1]}, per heavy {l1_per[2]}")
     if fly_launches != sum(sum(v) for v in per_call.values()):
         fail("admm_chunk launched outside the ticks")
+    if LDL_LAUNCHES["fly"] != sum(sum(v) for v in l1_call.values()):
+        fail("ldl_block launched outside the ticks")
     if not per_call["cold"] or not per_call[0] or min(
             min(v) for v in per_call.values() if v) < 1:
         fail("a tick ran without launching admm_chunk")
+    if min(min(v) for v in l1_call.values() if v) < 1:
+        fail("a tick ran without launching ldl_block")
     if n_arrived == 0:
         fail("no mission arrived")
 
@@ -1475,9 +1790,11 @@ def main():
     if "rescue" not in recorded:
         # no tick missed: force one light rescue on the last warm input
         admm_chunk._launch = recording_launch
+        LDL_REC["tag"] = "fly"
         driver._warm_tick(drv.cfg_tick, 0.1, 0, True, *tick_inputs["warm"],
                           rescue_scfg=replan.rescue_solver_config(
                               drv.cfg_tick.solver))
+        LDL_REC["tag"] = None
         admm_chunk._launch = launch
     tick_shapes = {}
     for batch in ("cold", "warm", "rescue"):
@@ -1490,6 +1807,7 @@ def main():
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
     seq10_launches, seq10_shape = seq10_phase(dev, qp_oracle)
+    ldl_shapes, ldl_counts = ldl_phase(dev, drv, tick_inputs, data, scfg)
 
     kernels = [{
         "name": "admm_chunk", "route": "cuda",
@@ -1517,6 +1835,25 @@ def main():
                         "bound_ms": train_bound_ms,
                         "max_rel_err": max(terrs)},
     }]
+    dep = ldl_shapes["deploy solve"]
+    kernels.append({
+        "name": "ldl_block", "route": "cuda",
+        "source": "allocnet_tpu_torch/csrc/ldl_block.cu",
+        "replaces": "allocnet_tpu/ops/ldl.py:37 (_ldl_unblocked, "
+                    "lax.fori_loop)",
+        "launches": LDL_LAUNCHES["serve"],
+        "max_abs_err": max(v["max_abs_err"] for v in ldl_shapes.values()),
+        "ms": dep["ms"], "plain_ms": dep["plain_ms"],
+        "bound_ms": dep["bound_ms"], "bound_by": dep["bound_by"],
+        # no PyTorch call computes a pivot-free LDL^T:
+        # torch.linalg.ldl_factor pivots (Bunch-Kaufman)
+        "library_ms": None,
+        "launches_by_path": dict(LDL_LAUNCHES),
+        "shapes": ldl_shapes,
+        "all_launches_before_after": {
+            k: v["launches"] for k, v in ldl_counts.items()
+            if isinstance(v, dict)},
+    })
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

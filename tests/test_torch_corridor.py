@@ -5,6 +5,9 @@ in f64 on both sides (the JAX side under tests/conftest.py's x64); routes
 are the same NumPy code and the same C++ source, so they match exactly."""
 
 import os
+import shutil
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +32,7 @@ from allocnet_tpu_torch.models import weights
 from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
 from allocnet_tpu_torch.planner import native, planner, rrt, sfc
 from allocnet_tpu_torch.train import datagen
+from tests import native_runtime
 from tests.test_driver import _pillar_map
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -55,11 +59,14 @@ def _cfgs(**ccfg):
 
 @pytest.fixture(scope="module")
 def maps():
+    # the JAX runtime builds at first use; another worker may be building
+    # it now (tests/native_runtime.py)
+    if not native_runtime.ensure_loaded():
+        pytest.skip("g++ is not installed: no JAX native runtime")
     pts = _pillar_map()
     pm = planner.build_map(pts, LO, HI, scale=0.25, dilate_r=2, device="cpu")
     jpm = jplanner.build_map(pts, LO, HI, scale=0.25, dilate_r=2)
-    if jpm.native is None:
-        pytest.skip("the JAX package's native runtime did not build")
+    assert jpm.native is not None
     return pts, pm, jpm
 
 
@@ -139,6 +146,36 @@ def test_native_build_failure_raises(monkeypatch):
     finally:
         native.build.cache_clear()
         native._load.cache_clear()
+
+
+RACERS = 4
+
+
+def test_concurrent_runtime_builds_all_load(tmp_path):
+    """The `maps` fixture's wait (tests/native_runtime.py) in RACERS
+    processes started together on a fresh copy of runtime/ with no
+    library: one builds it, and every one loads it."""
+    if shutil.which(native_runtime.makefile_command(".", "x")[0]) is None:
+        pytest.skip("g++ is not installed")
+    rt = tmp_path / "runtime"
+    rt.mkdir()
+    for name in ("Makefile", "allocnet_native.cpp"):
+        shutil.copy(os.path.join(native_runtime.RUNTIME, name), rt / name)
+    go = tmp_path / "go"
+    code = ("import os, time\n"
+            "from tests import native_runtime\n"
+            f"while not os.path.exists({str(go)!r}):\n"
+            "    time.sleep(0.01)\n"
+            f"print(native_runtime.ensure_loaded({str(rt)!r}))\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(RACERS)]
+    go.touch()
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0] * RACERS, outs
+    assert [o.strip() for o, _ in outs] == ["True"] * RACERS, outs
+    assert sorted(os.listdir(rt)) == ["Makefile", "allocnet_native.cpp",
+                                      native_runtime.LIB]
 
 
 def _rows_close(a, b):

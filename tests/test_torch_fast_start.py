@@ -28,7 +28,7 @@ from allocnet_tpu.planner import planner as jplanner
 from allocnet_tpu_torch.config import (AllocNetConfig, CorridorConfig,
                                        QPConfig, SolverConfig)
 from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
-from allocnet_tpu_torch.ops import admm_chunk
+from allocnet_tpu_torch.ops import admm_chunk, ldl
 from allocnet_tpu_torch.planner import driver, native
 from tests.test_driver import ConstTimeNet as JConstTimeNet
 from tests.test_driver import _pillar_map
@@ -48,12 +48,13 @@ def _cfg(res=10):
 
 @pytest.fixture
 def build_dirs(tmp_path):
-    """Restores both libraries' build directories after the test (the
+    """Restores the libraries' build directories after the test (the
     fast start points them elsewhere)."""
-    dirs = (admm_chunk.BUILD_DIR, native.BUILD_DIR)
+    mods = (admm_chunk, ldl, native)
+    dirs = [mod.BUILD_DIR for mod in mods]
     yield tmp_path
-    admm_chunk.set_build_dir(dirs[0])
-    native.set_build_dir(dirs[1])
+    for mod, d in zip(mods, dirs):
+        mod.set_build_dir(d)
 
 
 def _net(seed=0):
@@ -68,7 +69,8 @@ def test_save_aot_and_load_roundtrip(build_dirs, monkeypatch):
     assert not drv.aot_loaded
     sizes = drv.save_aot(aot)
     manifest = json.load(open(os.path.join(aot, "manifest.json")))
-    assert manifest["kernel"] is None and manifest["device"] == "cpu"
+    assert manifest["kernel"] is None and manifest["ldl"] is None
+    assert manifest["device"] == "cpu"
     assert set(sizes) == {"native"} and sizes["native"] > 10_000
     assert os.path.exists(os.path.join(aot, manifest["native"]))
     assert manifest["cfg"] == repr(drv.cfg_tick)

@@ -13,7 +13,7 @@ import torch
 
 from allocnet_tpu_torch.config import (AllocNetConfig, CorridorConfig,
                                        QPConfig, SolverConfig)
-from allocnet_tpu_torch.ops import admm, admm_chunk, qp
+from allocnet_tpu_torch.ops import admm, admm_chunk, ldl, qp
 from allocnet_tpu_torch.planner import driver, planner, replan
 from allocnet_tpu_torch.utils import scenarios
 
@@ -165,6 +165,7 @@ def test_cold_and_warm_tick_match_cpu(cuda):
         adv.prev.coeffs.cpu(), adv.prev.times.cpu(), adv.prev.have_prev.cpu(),
         {k: v.cpu() for k, v in adv.prev.duals.items()})
     n0 = admm_chunk.admm_chunk.launches
+    l0 = ldl.ldl_block.launches
     with torch.no_grad():
         wout = gpu._tick(adv.state9, adv.hpolys, adv.seg, adv.prev)
         torch.cuda.synchronize()
@@ -172,6 +173,8 @@ def test_cold_and_warm_tick_match_cpu(cuda):
                          prev_cpu)
     assert wout[4] == wref[4] == 0
     assert admm_chunk.admm_chunk.launches - n0 == 1
+    # the warm tick's polish factors through the LDL^T block kernel
+    assert ldl.ldl_block.launches - l0 > 0
     _assert_same_tick(wout, wref)
 
 

@@ -18,7 +18,7 @@ from allocnet_tpu_torch.config import (AllocNetConfig, CorridorConfig,
                                        QPConfig, SolverConfig)
 from allocnet_tpu_torch.models import weights
 from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
-from allocnet_tpu_torch.ops import admm, admm_chunk, qp
+from allocnet_tpu_torch.ops import admm, admm_chunk, ldl, qp
 from allocnet_tpu_torch.planner import pipeline, planner
 from allocnet_tpu_torch.train import datagen
 from allocnet_tpu_torch.utils import scenarios
@@ -295,9 +295,13 @@ def test_solve_on_the_card_matches_cpu(cuda):
     cfg, scfg = QPConfig(res=10), SolverConfig(n_chunks=2, iters_per_chunk=75)
     sc, data = _data(cfg, 16, 5, cuda)
     before = admm_chunk.admm_chunk.launches
+    ldl_before = ldl.ldl_block.launches
     sol = admm.solve_qp(data, scfg)
     torch.cuda.synchronize()
     assert admm_chunk.admm_chunk.launches == before + scfg.n_chunks
+    # the polish factors through the LDL^T block kernel: 4 blocks each
+    n_ldl = ldl.ldl_block.launches - ldl_before
+    assert n_ldl > 0 and n_ldl % 4 == 0
     _, cdata = _data(cfg, 16, 5, "cpu")
     ref = admm.solve_qp(cdata, scfg)
     solved = sol.solved.cpu()
