@@ -14,10 +14,11 @@ restores full accuracy.
 
 The diagonal block is the operator `allocnet_torch::ldl_block`
 (`ldl_block`): on a card the hand-written kernel csrc/ldl_block.cu (one
-launch per block; the JAX package runs a `lax.fori_loop` inside its jitted
-programs), on the CPU its plain version `ldl_block_reference`.  The panel's
-triangular solve, the trailing GEMM and `ldl_solve`'s two triangular
-solves are library calls, as JAX leaves them to XLA.
+launch per block, one warp per scenario; the JAX package runs a
+`lax.fori_loop` inside its jitted programs), on the CPU its plain version
+`ldl_block_reference`.  The panel's triangular solve, the trailing GEMM
+and `ldl_solve`'s two triangular solves are library calls, as JAX leaves
+them to XLA.
 """
 
 from __future__ import annotations
@@ -69,9 +70,27 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ldl_block_launch.argtypes = [i, i, ctypes.c_float] + [p] * 5
     lib.ldl_block_launch.restype = i
+    lib.ldl_block_geometry.argtypes = [p]
+    lib.ldl_block_geometry.restype = i
     lib.ldl_block_error_string.argtypes = [i]
     lib.ldl_block_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def geometry() -> dict:
+    """The kernel's launch geometry on the current card, from the built
+    library: scenarios (warps) per thread block, dynamic shared memory per
+    thread block (bytes), thread blocks resident per SM, registers and
+    local memory (bytes; 0 without spills) per thread."""
+    lib = _library()
+    info = (ctypes.c_int * 5)()
+    err = lib.ldl_block_geometry(info)
+    if err != 0:
+        raise RuntimeError(f"ldl_block: geometry query failed: cudaError "
+                           f"{err} ({lib.ldl_block_error_string(err).decode()})")
+    keys = ("warps_per_block", "smem_bytes", "blocks_per_sm", "registers",
+            "local_bytes")
+    return dict(zip(keys, info))
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +177,8 @@ def _ldl_block_cuda(Kb, sign, reg):
                          f"{MAX_NB} columns, not {NB}")
     L = torch.empty_like(Kb)
     d = Kb.new_empty((B, NB))
+    if B == 0:                 # nothing to launch, nothing counted
+        return L, d
     lib = _library()
     with torch.cuda.device(Kb.device):
         stream = torch.cuda.current_stream(Kb.device).cuda_stream

@@ -23,10 +23,12 @@ processes to their first tick with and without the prebuilt libraries of
 the solve-scaling sweep on the card and holds the kernel against its
 plain version at the certify shape and at order 3 (min-jerk).  Then the
 ten-segment operating point, and last the `ldl` phase: ldl_block against
-its plain version on the diagonal blocks that the polish factored on the
-way (deploy solve, cold, warm and rescue ticks, certify, S=10) and on
-random and non-finite blocks, and all kernel launches per factorization,
-solve and tick with the plain version on the card and with the kernel.
+its plain version, exactly, on the diagonal blocks that the polish factored
+on the way (deploy solve, cold, warm and rescue ticks, certify, S=10) and
+on random blocks (B=1024, and B=1025, whose last thread block is short),
+non-finite scenarios kept to themselves, and all kernel launches per
+factorization, solve and tick with the plain version on the card and with
+the kernel.
 Every path counts both kernels' launches and fails if one did not launch.
 Prints one JSON line with both kernels and a final status line.
 
@@ -113,9 +115,7 @@ K1 = L1 = None
 LDL_LAUNCHES = {}
 LDL_REC = {"tag": None, "blocks": {}, "factor": {}}
 LDL_REPS = 20
-# L1 against its plain version where they are not equal bit for bit: of
-# each column's largest entry, on blocks without and with bumped pivots
-LDL_TOL, LDL_TOL_BUMPED = 1e-6, 1e-4
+LDL_TAIL_B = 1025        # a batch whose last thread block is short
 
 
 def phase(name, t0):
@@ -198,26 +198,23 @@ def ldl_work(B, NB):
 
 def ldl_compare(got, want, reg, what):
     """L1's (L, d) against the plain version's on the finite scenarios of
-    the reference: (bitwise equal, max abs diff, max diff over its
-    column's largest entry, bumped pivots in the reference).  Fails above
-    LDL_TOL (LDL_TOL_BUMPED with bumped pivots) when not bitwise equal."""
+    the reference: (equal, equal bit patterns, max abs diff, bumped pivots
+    in the reference).  Fails unless they are equal (torch.equal: a zero
+    may differ in sign only, which the bit patterns show)."""
     import torch
     (L, d), (rL, rd) = got, want
     fin = torch.isfinite(rL).flatten(1).all(1) & torch.isfinite(rd).all(1)
     L, d, rL, rd = L[fin], d[fin], rL[fin], rd[fin]
     same = torch.equal(L, rL) and torch.equal(d, rd)
+    bits = (torch.equal(L.view(torch.int32), rL.view(torch.int32))
+            and torch.equal(d.view(torch.int32), rd.view(torch.int32)))
     bumped = int((rd.abs() < reg).sum())
-    if not fin.any():
-        return same, 0.0, 0.0, bumped
-    absd = max(float((L - rL).abs().max()), float((d - rd).abs().max()))
-    col = rL.abs().amax(1).clamp_min(1e-30)
-    rel = max(float(((L - rL).abs().amax(1) / col).max()),
-              float(((d - rd).abs() / rd.abs().amax(1, keepdim=True)
-                     .clamp_min(1e-30)).max()))
-    if not same and rel > (LDL_TOL_BUMPED if bumped else LDL_TOL):
-        fail(f"ldl_block disagrees with its plain version on the {what} "
-             f"blocks: {rel:.3e} of a column's largest entry")
-    return same, absd, rel, bumped
+    absd = 0.0 if not fin.any() else max(float((L - rL).abs().max()),
+                                         float((d - rd).abs().max()))
+    if not same:
+        fail(f"ldl_block differs from its plain version on the {what} "
+             f"blocks: max abs diff {absd:.3e}")
+    return same, bits, absd, bumped
 
 
 def record_ldl(ldl, L1):
@@ -1024,57 +1021,50 @@ def seq10_phase(dev, qp_oracle):
     return launches, shape
 
 
-def random_qd_blocks(B, dev, seed):
-    """Seeded quasi-definite (B, 64, 64) f32 blocks, 40 positive pivots and
-    24 negative, with pivots below the polish's reg (1e-5) in columns 5,
-    20, 45 and 50 (no coupling to the columns before them); and the
-    signs."""
-    import numpy as np
-    import torch
-    rng = np.random.default_rng(seed)
-    W = rng.normal(size=(B, 64, 64))
-    K = W @ np.swapaxes(W, 1, 2) / 64 + np.eye(64)
-    K[:, 40:, 40:] = -K[:, 40:, 40:]
-    K[:, :40, 40:] *= 0.1
-    K[:, 40:, :40] *= 0.1
-    for j, v in ((5, 0.0), (20, 3e-8), (45, 2e-9), (50, -4e-7)):
-        K[:, j, :j] = K[:, :j, j] = 0.0
-        K[:, j, j] = v
-    sign = np.where(np.arange(64) < 40, 1.0, -1.0)
-    return (torch.tensor(K, dtype=torch.float32, device=dev),
-            torch.tensor(sign, dtype=torch.float32, device=dev))
-
-
 LDL_TAGS = ("deploy solve", "cold tick", "warm tick", "rescue tick",
             "certify", "S=10 solve")
 
 
 def ldl_phase(dev, drv, tick_inputs, data, scfg):
-    """L1 against its plain version on the card: on every diagonal block of
-    the first polish factorization recorded under each of LDL_TAGS, on
-    random quasi-definite blocks with bumped pivots (B=1024) and on a batch
-    with two non-finite scenarios; ms per launch (CUDA events), the plain
-    version's ms, the bound (`ldl_work`).  The deploy solve's polish through
-    L1 against the same solve through the plain version.  Then all kernel
-    launches (torch.profiler) per factorization, deploy solve, cold tick
-    and warm tick with the plain version on the card (before) and with L1
-    (after), and the ticks' host ms both ways.  Returns (numbers by shape,
-    launch and time counts)."""
+    """L1 against its plain version on the card, exactly (`ldl_compare`):
+    on every diagonal block of the first polish factorization recorded
+    under each of LDL_TAGS, on random quasi-definite blocks with bumped
+    pivots (B=1024) and on the same at LDL_TAIL_B, whose last thread block
+    is short; on a batch with two non-finite scenarios and on one of 8
+    with a NaN in scenario 5 only (which shares its thread block with
+    scenarios 4, 6 and 7).  Per shape: ms per launch inside a CUDA graph
+    (the kernel's device time), ms per eager call (CUDA events), the plain
+    version's ms, the bound (`ldl_work`).  The kernel's launch geometry.
+    The deploy solve's polish through L1 against the same solve through
+    the plain version.  Then all kernel launches (torch.profiler) per
+    factorization, deploy solve, cold tick and warm tick with the plain
+    version on the card (before) and with L1 (after), and the ticks' host
+    ms both ways.  Returns (numbers by shape, launch and time counts,
+    geometry)."""
     import numpy as np
     import torch
     from allocnet_tpu_torch.ops import admm, ldl
-    from allocnet_tpu_torch.utils import profile_solve
+    from allocnet_tpu_torch.utils import bench_ldl, profile_solve
 
     t0 = time.perf_counter()
     ref = ldl.ldl_block_reference
+    geometry = ldl.geometry()
+    print(f"ldl: L1 geometry: {geometry['warps_per_block']} scenarios "
+          f"(warps) per thread block, {geometry['blocks_per_sm']} thread "
+          f"blocks per SM, {geometry['registers']} registers and "
+          f"{geometry['local_bytes']} bytes of local memory per thread, "
+          f"{geometry['smem_bytes']} bytes of shared memory per thread "
+          f"block", flush=True)
     shapes = {}
-    rb = random_qd_blocks(B, dev, SEED)
     cases = [(tag, LDL_REC["blocks"].get(tag)) for tag in LDL_TAGS]
-    cases.append(("random, bumped pivots", [(*rb, 1e-5)]))
+    for tag, b in (("random, bumped pivots", B),
+                   ("random, short last thread block", LDL_TAIL_B)):
+        cases.append((tag, [(*bench_ldl.random_qd_blocks(b, dev, SEED),
+                             1e-5)]))
     for tag, blocks in cases:
         if not blocks:
             fail(f"no {tag} factorization reached ldl_block")
-        same, absd, rel, bumped = True, 0.0, 0.0, 0
+        same, bits, absd, bumped = True, True, 0.0, 0
         for Kb, sg, reg in blocks:
             got = L1(Kb, sg, reg)
             torch.cuda.synchronize()
@@ -1082,43 +1072,52 @@ def ldl_phase(dev, drv, tick_inputs, data, scfg):
                     and bool(torch.isfinite(got[1]).all())):
                 fail(f"ldl_block gave non-finite values on the {tag} blocks")
             r = ldl_compare(got, ref(Kb, sg, reg), reg, tag)
-            same, absd = same and r[0], max(absd, r[1])
-            rel, bumped = max(rel, r[2]), bumped + r[3]
+            same, bits = same and r[0], bits and r[1]
+            absd, bumped = max(absd, r[2]), bumped + r[3]
         Kb, sg, reg = blocks[0]
-        ms = cuda_ms(lambda: L1(Kb, sg, reg), reps=LDL_REPS, warmup=2)
+        ms = bench_ldl.graph_ms(lambda: L1(Kb, sg, reg), reps=LDL_REPS)
+        eager = cuda_ms(lambda: L1(Kb, sg, reg), reps=LDL_REPS, warmup=2)
         pms = cuda_ms(lambda: ref(Kb, sg, reg), reps=3)
         ops, nbytes = ldl_work(Kb.shape[0], Kb.shape[1])
         t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         shapes[tag] = {"B": int(Kb.shape[0]), "blocks": len(blocks),
-                       "ms": ms, "plain_ms": pms,
+                       "ms": ms, "eager_ms": eager, "plain_ms": pms,
                        "bound_ms": max(t_ops, t_bytes),
                        "bound_by": "operations" if t_ops >= t_bytes
-                       else "bytes", "bitwise": same, "max_abs_err": absd,
-                       "max_col_rel_err": rel, "bumped_pivots": bumped}
+                       else "bytes", "equal": same, "bit_patterns": bits,
+                       "max_abs_err": absd, "bumped_pivots": bumped}
         print(f"ldl: {tag}: {len(blocks)} blocks of B={Kb.shape[0]} x 64 x 64;"
-              f" kernel {ms:.4f} ms, plain {pms:.3f} ms per block, bound "
+              f" kernel {ms:.4f} ms per launch in a graph, {eager:.4f} ms "
+              f"per eager call, plain {pms:.3f} ms per block, bound "
               f"{max(t_ops, t_bytes):.5f} ms ({ops:.3e} operations, "
-              f"{nbytes:.3e} B); bitwise equal {same}, max abs diff "
-              f"{absd:.3e}, of a column's largest entry {rel:.3e}; bumped "
-              f"pivots {bumped}")
+              f"{nbytes:.3e} B); equal {same}, bit patterns equal {bits}; "
+              f"bumped pivots {bumped}", flush=True)
 
-    # non-finite input: scenario 1 a NaN below the diagonal, scenario 2 an
-    # inf above it
-    Kb, sg = random_qd_blocks(4, dev, SEED + 1)
-    Kb[1, 30, 12], Kb[2, 10, 33] = float("nan"), float("inf")
-    (L, d), (rL, rd) = L1(Kb, sg, 1e-5), ref(Kb, sg, 1e-5)
-    torch.cuda.synchronize()
     strict = torch.tril(torch.ones(64, 64, dtype=torch.bool, device=dev), -1)
-    bad_ok = all(bool(torch.isnan(d[b]).all()) and bool(torch.isnan(
-        L[b][strict]).all()) and not bool(torch.isfinite(rd[b]).all())
-        for b in (1, 2))
-    good_ok = all(torch.equal(L[b], rL[b]) and torch.equal(d[b], rd[b])
-                  for b in (0, 3))
-    print(f"  non-finite scenarios 1 and 2 of 4: d NaN on the card, not "
-          f"finite in the plain version: {bad_ok}; scenarios 0 and 3 equal "
-          f"the plain version: {good_ok}")
-    if not bad_ok or not good_ok:
-        fail("ldl_block on non-finite input")
+    eye = torch.eye(64, device=dev)
+    # non-finite input: scenario 1 a NaN below the diagonal, scenario 2 an
+    # inf above it; then a NaN in scenario 5 of 8 only (thread block 1)
+    for B_, seed, where, bad in ((4, SEED + 1, ((1, 30, 12), (2, 10, 33)),
+                                  (1, 2)),
+                                 (8, SEED + 8, ((5, 40, 7),), (5,))):
+        Kb, sg = bench_ldl.random_qd_blocks(B_, dev, seed)
+        for (b, i, k), v in zip(where, (float("nan"), float("inf"))):
+            Kb[b, i, k] = v
+        (L, d), (rL, rd) = L1(Kb, sg, 1e-5), ref(Kb, sg, 1e-5)
+        torch.cuda.synchronize()
+        bad_ok = all(bool(torch.isnan(d[b]).all())
+                     and bool(torch.isnan(L[b][strict]).all())
+                     and torch.equal(L[b].masked_fill(strict, 0.0), eye)
+                     and not bool(torch.isfinite(rd[b]).all()) for b in bad)
+        good = [b for b in range(B_) if b not in bad]
+        good_ok = all(torch.equal(L[b], rL[b]) and torch.equal(d[b], rd[b])
+                      for b in good)
+        print(f"  non-finite scenarios {bad} of {B_}: d and strict L NaN on "
+              f"the card, unit diagonal, not finite in the plain version: "
+              f"{bad_ok}; scenarios {good} equal the plain version: "
+              f"{good_ok}")
+        if not bad_ok or not good_ok:
+            fail(f"ldl_block on non-finite input (B={B_})")
 
     # the polish through L1 and through the plain version, same inputs
     block = ldl.ldl_block
@@ -1180,7 +1179,7 @@ def ldl_phase(dev, drv, tick_inputs, data, scfg):
               f"{name} {counts[name + ' before']['launches']:g} -> "
               f"{counts[name + ' after']['launches']:g}" for name in paths))
     phase("ldl", t0)
-    return shapes, counts
+    return shapes, counts, geometry
 
 
 def main():
@@ -1807,7 +1806,8 @@ def main():
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
     seq10_launches, seq10_shape = seq10_phase(dev, qp_oracle)
-    ldl_shapes, ldl_counts = ldl_phase(dev, drv, tick_inputs, data, scfg)
+    ldl_shapes, ldl_counts, ldl_geometry = ldl_phase(dev, drv, tick_inputs,
+                                                     data, scfg)
 
     kernels = [{
         "name": "admm_chunk", "route": "cuda",
@@ -1841,6 +1841,10 @@ def main():
         "source": "allocnet_tpu_torch/csrc/ldl_block.cu",
         "replaces": "allocnet_tpu/ops/ldl.py:37 (_ldl_unblocked, "
                     "lax.fori_loop)",
+        "history": "ported with one thread block per scenario; "
+                   "redesigned with one warp per scenario, 4 per thread "
+                   "block, panels of 8 columns, no block-wide barrier "
+                   "(PERF.md section 6, kernel table)",
         "launches": LDL_LAUNCHES["serve"],
         "max_abs_err": max(v["max_abs_err"] for v in ldl_shapes.values()),
         "ms": dep["ms"], "plain_ms": dep["plain_ms"],
@@ -1849,6 +1853,7 @@ def main():
         # torch.linalg.ldl_factor pivots (Bunch-Kaufman)
         "library_ms": None,
         "launches_by_path": dict(LDL_LAUNCHES),
+        "geometry": ldl_geometry,
         "shapes": ldl_shapes,
         "all_launches_before_after": {
             k: v["launches"] for k, v in ldl_counts.items()

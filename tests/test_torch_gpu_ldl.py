@@ -1,7 +1,9 @@
 """The polish's LDL^T block kernel (csrc/ldl_block.cu) on the card: against
 its plain version `ldl_block_reference` on the same card, on the diagonal
-blocks that the polish factors and on random blocks, the operator's
-dispatch, the fast start's library and the polish's solutions through it.
+blocks that the polish factors and on random blocks, at batch sizes that
+leave a thread block's last warps without a scenario and at block sizes
+other than the polish's 64, the operator's dispatch, the fast start's
+library and the polish's solutions through it.
 Skips without a CUDA device.  Run on the card with
 
     python -m pytest tests/test_torch_gpu_ldl.py -m gpu --noconftest -o addopts=''
@@ -23,7 +25,7 @@ from allocnet_tpu_torch.config import (AllocNetConfig, CorridorConfig,
                                        QPConfig, SolverConfig)
 from allocnet_tpu_torch.ops import _cuda_build, admm, admm_chunk, ldl, qp
 from allocnet_tpu_torch.planner import driver, native
-from allocnet_tpu_torch.utils import scenarios
+from allocnet_tpu_torch.utils import bench_ldl, scenarios
 from tests.test_torch_gpu_drive import ConstTimeNet
 
 REG = 1e-5                 # SolverConfig.polish_ldl_delta
@@ -102,6 +104,72 @@ def test_kernel_equals_plain_on_polish_blocks(cuda, B):
 @pytest.mark.parametrize("B", [1, 3, 4, 256, 1024])
 def test_kernel_equals_plain_on_random_blocks(cuda, B):
     _launch_and_compare(*_random_blocks(B, cuda, seed=B))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [5, 7, 1023, 1025])
+def test_kernel_equals_plain_with_a_partial_last_thread_block(cuda, B):
+    """Batches that are not a multiple of the scenarios per thread block:
+    the last block's spare warps return at once and wait on nothing."""
+    assert ldl.geometry()["warps_per_block"] == 4
+    _launch_and_compare(*_random_blocks(B, cuda, seed=B))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [1, 17, 60, 63])
+def test_kernel_equals_plain_at_other_block_sizes(cuda, nb):
+    """Blocks of other than 64 columns with bumped pivots: 4-byte loads
+    and stores where nb % 4 != 0, 16-byte ones at 60."""
+    Kb, sign = bench_ldl.random_qd_blocks(9, cuda, seed=nb, nb=nb)
+    assert bool((ldl.ldl_block_reference(Kb, sign, REG)[1].abs()
+                 < REG).any())
+    _launch_and_compare(Kb, sign)
+
+
+@pytest.mark.gpu
+def test_kernel_on_a_misaligned_block(cuda):
+    """K 4 bytes off a 16-byte boundary (a contiguous view into a larger
+    buffer): the kernel takes 4-byte loads and equals the plain version."""
+    Kb, sign = _random_blocks(6, cuda, seed=3)
+    buf = torch.empty(Kb.numel() + 1, device=cuda)
+    view = buf[1:].view(Kb.shape)
+    view.copy_(Kb)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    _launch_and_compare(view, sign)
+
+
+@pytest.mark.gpu
+def test_empty_batch_launches_nothing(cuda):
+    Kb, sign = _random_blocks(1, cuda)
+    before = ldl.ldl_block.launches
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        L, d = ldl.ldl_block(Kb[:0], sign, REG)
+        torch.cuda.synchronize()
+    assert ldl.ldl_block.launches == before
+    assert not [ev for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.name.startswith("ldl_block_kernel")]
+    assert L.shape == (0, NB, NB) and d.shape == (0, NB)
+    assert L.device == Kb.device and L.dtype == torch.float32
+
+
+@pytest.mark.gpu
+def test_non_finite_scenario_leaves_its_thread_block_alone(cuda):
+    """B=8 with a NaN in scenario 5 only (the second thread block holds
+    scenarios 4-7): scenario 5 gets NaN in all of d and of L's strict
+    lower triangle, the other seven equal the plain version."""
+    Kb, sign = _random_blocks(8, cuda, seed=11)
+    Kb[5, 40, 7] = float("nan")
+    L, d = ldl.ldl_block(Kb, sign, REG)
+    rL, rd = ldl.ldl_block_reference(Kb, sign, REG)
+    torch.cuda.synchronize()
+    strict = torch.tril(torch.ones(NB, NB, dtype=torch.bool, device=cuda), -1)
+    assert torch.isnan(d[5]).all() and torch.isnan(L[5][strict]).all()
+    assert torch.equal(L[5].diagonal(), torch.ones_like(d[5]))
+    assert torch.equal(torch.triu(L[5], 1), torch.zeros_like(L[5]))
+    for b in (0, 1, 2, 3, 4, 6, 7):
+        assert torch.equal(L[b], rL[b]) and torch.equal(d[b], rd[b]), b
 
 
 @pytest.mark.gpu
