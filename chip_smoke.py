@@ -13,9 +13,13 @@ voxel map from a point cloud, plans two missions' corridors (native
 Informed RRT*, FIRI, the fused corridor; held against the CPU's) and flies
 them with the 10 Hz receding-horizon driver (cold, warm and rescue ticks;
 the kernel held against its plain version on each tick batch, the first
-cold tick against the CPU path).  Then the application layer at DEPLOY:
-generates a certified dataset from a synthetic point cloud (PCD write,
-read and crop; corridors and certification held against the CPU's),
+cold tick against the CPU path), then runs planner/drive_eval's 50-mission
+eval on a cut of 2 maps x 2 missions (every mission arrives; the sampled
+missions held against the CPU's; tick latency by rescue stage).  Then the
+application layer at DEPLOY: generates a certified dataset from a
+synthetic point cloud (PCD write, read and crop; corridors and
+certification held against the CPU's; certify sample 80 traced through
+the kernel, the plain chunk on the card and the CPU path),
 exports the net as TorchScript and the replanning step as a
 `torch.export` program (held against the eager ones), starts two fresh
 processes to their first tick with and without the prebuilt libraries of
@@ -106,6 +110,18 @@ SEQ10_REFINE_B = 256
 MAZE_EXTENT = (40.0, 20.0, 4.0)
 MAZE_STARTS = ((2.0, 10.0, 2.0), (2.0, 17.0, 2.0))
 MAZE_GOALS = ((38.0, 10.0, 2.0), (38.0, 3.0, 2.0))
+# drive_eval phase: planner/drive_eval's 50-mission eval cut to its first
+# 2 maps (seeds 100 and 101) x 2 missions, at most 600 ticks each, with
+# certify; the card's sampled missions against the CPU's (goal within
+# DRIVE_GOAL_TOL m)
+DRIVE_MAPS = 2
+DRIVE_PER_MAP = 2
+DRIVE_TICKS = 600
+DRIVE_GOAL_TOL = 1e-3
+# the certify sample whose flag the card and the CPU decide differently
+# with no rounding witness (datagen phase): traced through K1, the plain
+# chunk on the card and the CPU path
+TRACE_SAMPLE = 80
 
 
 # the two kernels' wrappers (set in main): each counts its own launches
@@ -403,6 +419,164 @@ def rounding_witness(dcfg, batch, flags_gpu, flags_cpu, dev):
     return bad, ctrl, flips["CPU"], flips["card (not gated)"]
 
 
+def trace_sample(dcfg, batch, b, dev):
+    """Certify sample `b` of `batch` solved three ways, each on the whole
+    batch at CERTIFY_SOLVER: through K1 on the card, through the plain
+    chunk (`admm_chunk_reference`) on the card, and through the CPU path.
+    Prints, for sample b, each chunk's outputs (x, z, yh, yeh: max
+    difference over the larger side's largest entry, per pair of sides),
+    each polish round's active set (the rows with a nonzero multiplier)
+    and the status test, then the first step where each pair parts: a
+    chunk above CHUNK_TOL, an active set, or the status.  Printed only."""
+    import torch
+    from allocnet_tpu_torch import config
+    from allocnet_tpu_torch.ops import admm, admm_chunk, qp
+
+    k1, polish = admm_chunk.admm_chunk, admm.polish
+    f32 = lambda a: a.astype("float32")
+    sides = {}
+    for name, d, chunk in (("K1", dev, k1),
+                           ("plain", dev, admm_chunk.admm_chunk_reference),
+                           ("CPU", "cpu", k1)):
+        tr = sides[name] = {"chunks": [], "active": []}
+
+        def rec_chunk(*a, chunk=chunk, tr=tr):
+            out = chunk(*a)
+            tr["chunks"].append([o[b].double().cpu() for o in out])
+            return out
+
+        # the operator counts K1's launches on the module's `admm_chunk`,
+        # which is rec_chunk here: the trace's launches stay out of K1's
+        rec_chunk.launches = 0
+
+        def rec_polish(*a, tr=tr, **k):
+            out = polish(*a, **k)
+            tr["active"].append(frozenset(
+                torch.nonzero(out[2][b]).flatten().tolist()))
+            return out
+
+        admm_chunk.admm_chunk, admm.polish = rec_chunk, rec_polish
+        try:
+            sol = admm.solve_qp(qp.build_qp(
+                dcfg.qp, f32(batch.state), f32(batch.hpolys),
+                f32(batch.times), batch.seg, device=d), config.CERTIFY_SOLVER)
+        finally:
+            admm_chunk.admm_chunk, admm.polish = k1, polish
+        tr["status"] = (bool(sol.solved[b]), bool(sol.polished[b]),
+                        float(sol.pri_rel[b]), float(sol.dua_rel[b]),
+                        float(sol.obj[b]))
+    print(f"  trace of certify sample {b} (seg {batch.seg[b]}), K1 on the "
+          f"card / plain chunk on the card / CPU path:")
+    pairs = (("K1", "CPU"), ("plain", "CPU"), ("K1", "plain"))
+
+    def rel(u, v):
+        return max(float((p - q).abs().max())
+                   / max(1.0, float(p.abs().max()), float(q.abs().max()))
+                   for p, q in zip(u, v))
+    parted = {}
+    for c in range(len(sides["CPU"]["chunks"])):
+        diffs = {p: rel(sides[p[0]]["chunks"][c], sides[p[1]]["chunks"][c])
+                 for p in pairs}
+        print(f"    chunk {c}: " + ", ".join(
+            f"{u} vs {v} {e:.3e}" for (u, v), e in diffs.items()))
+        for p, e in diffs.items():
+            if e > CHUNK_TOL:
+                parted.setdefault(p, f"chunk {c} ({e:.3e})")
+    for r in range(len(sides["CPU"]["active"])):
+        sets = {s: sides[s]["active"][r] for s in sides}
+        print(f"    polish round {r}: active rows " + ", ".join(
+            f"{s} {len(a)}" for s, a in sets.items()) + "; differ " + ", ".join(
+            f"{u} vs {v} {len(sets[u] ^ sets[v])}" for u, v in pairs))
+        for u, v in pairs:
+            if sets[u] != sets[v]:
+                parted.setdefault((u, v), f"polish round {r}'s active set")
+    for s, st in ((s, sides[s]["status"]) for s in sides):
+        print(f"    status {s}: solved {st[0]} polished {st[1]} pri_rel "
+              f"{st[2]:.3e} dua_rel {st[3]:.3e} obj {st[4]:.6f}")
+    for u, v in pairs:
+        if sides[u]["status"][0] != sides[v]["status"][0]:
+            parted.setdefault((u, v), "the status test")
+    print("    first step where they part: " + "; ".join(
+        f"{u} vs {v}: {parted.get((u, v), 'none')}" for u, v in pairs))
+
+
+def drive_eval_phase(dev):
+    """planner/drive_eval's eval on its cut (DRIVE_MAPS maps x
+    DRIVE_PER_MAP missions, DRIVE_TICKS ticks, certify), through its
+    `run_eval` (which raises when the ticks' stages disagree with the
+    tick functions the driver called).  Fails on a non-finite state, a
+    mission that does not arrive, a sampled mission that differs from the
+    CPU's, or a tick without a K1 and an L1 launch.  Returns K1's launches
+    on the path."""
+    import numpy as np
+    from allocnet_tpu_torch import config
+    from allocnet_tpu_torch.planner import drive_eval, planner
+
+    t0 = time.perf_counter()
+    lo, hi = np.zeros(3), np.asarray(drive_eval.EXTENT)
+
+    def same_as_cpu(map_seed, pmap, rng_state, plans):
+        rng = np.random.default_rng()
+        rng.bit_generator.state = rng_state
+        cpu = planner.sample_missions(pmap, config.DEPLOY, rng,
+                                      DRIVE_PER_MAP, lo, hi, device="cpu")
+        if len(cpu) != len(plans):
+            fail(f"map {map_seed}: {len(plans)} missions sampled on the "
+                 f"card, {len(cpu)} on the CPU")
+        for k, ((s, _, _, cp), (s_c, _, _, cp_c)) in enumerate(zip(plans,
+                                                                  cpu)):
+            dg = float(np.abs(cp.route[-1] - cp_c.route[-1]).max())
+            print(f"  map {map_seed} mission {k}: {np.round(s, 3).tolist()}"
+                  f" -> {np.round(cp.route[-1], 3).tolist()}, seg {cp.seg} "
+                  f"(CPU seg {cp_c.seg}, goal {dg:.2e} m apart)")
+            if (not np.array_equal(s, s_c) or cp.seg != cp_c.seg
+                    or dg > DRIVE_GOAL_TOL):
+                fail(f"map {map_seed} mission {k}: the card sampled another "
+                     f"mission than the CPU")
+
+    zero_counts()
+    out = drive_eval.run_eval(DRIVE_MAPS, DRIVE_PER_MAP, DRIVE_TICKS,
+                              certify=True, device=dev, on_map=same_as_cpu,
+                              log=lambda s: print("  " + s, flush=True))
+    k1n = K1.launches
+    l1_ran("drive_eval")
+    missions = out["missions"]
+    print("drive_eval: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("missions", "stages",
+                                                   "launches")}))
+    st = out["stages"]
+    print(f"  tick ms by stage (warm p99 {st['warm_p99_ms']:.1f} ms, "
+          f"{st['warm_tail_n']} ticks above it): " + "; ".join(
+              f"{s} {st[s]['n']} ticks" + (
+                  f" p50 {st[s]['wall_p50_ms']:.1f} p99 "
+                  f"{st[s]['wall_p99_ms']:.1f}, tail share "
+                  f"{st[s]['tail_share']:.3f}" if st[s]['n'] else "")
+              for s in drive_eval.STAGES))
+    print(f"  missions_matching_record: {out['missions_matching_record']} "
+          f"(runs/drive/drive_eval.json; not gated)")
+    la = out["launches"]
+    print(f"  launches: admm_chunk {k1n}, ldl_block {LDL_LAUNCHES['drive_eval']}"
+          f" on the path (prewarm included); per tick kind: " + "; ".join(
+              f"{s} {la[s]['ticks']} ticks, admm_chunk {la[s]['k1']} "
+              f"{la[s]['k1_per_tick']}, ldl_block {la[s]['l1']} "
+              f"{la[s]['l1_per_tick']}" for s in drive_eval.STAGES))
+    for m in missions:
+        if not m["finite"]:
+            fail(f"map {m['map_seed']}: a tick gave a non-finite state")
+        if not m["arrived"]:
+            fail(f"map {m['map_seed']}: a mission did not arrive "
+                 f"({m['final_dist_m']:.4f} m)")
+    if len(missions) != DRIVE_MAPS * DRIVE_PER_MAP:
+        fail(f"drive_eval flew {len(missions)} missions")
+    if k1n < 1:
+        fail("the drive_eval path did not launch admm_chunk")
+    if any(min(la[s][k] or [1]) < 1 for s in drive_eval.STAGES
+           for k in ("k1_per_tick", "l1_per_tick")):
+        fail("a drive_eval tick ran without launching both kernels")
+    phase("drive_eval", t0)
+    return k1n
+
+
 def application_phases(dev, drv, params, cold_inputs, mission):
     """The application layer at DEPLOY: dataset generation from a point
     cloud, the exported artefacts, the fast start, the on-chip tick cost,
@@ -548,6 +722,8 @@ def application_phases(dev, drv, params, cold_inputs, mission):
                  f"and kept on the CPU under every perturbation of the times")
         if 2 * int((flips[len(bad):] > 0).sum()) > len(ctrl):
             fail("the rounding witness flips most of the control samples")
+    if TRACE_SAMPLE < len(rec["batch"].seg):
+        trace_sample(dcfg, rec["batch"], TRACE_SAMPLE, dev)
     starts, goals, seed = rec["cands"][0]
     n_c = min(8, len(starts))
     pmap_c = planner.build_map(crops[0]["points"], np.zeros(3),
@@ -1802,6 +1978,7 @@ def main():
         tick_shapes[batch] = shape_numbers(admm_chunk, dcfg.qp,
                                            recorded[batch], batch)
     phase("fly", t0)
+    drive_launches = drive_eval_phase(dev)
 
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
@@ -1822,7 +1999,8 @@ def main():
             "refine": refine_launches,
             "cold_tick": sum(per_call["cold"]), "warm_tick": sum(per_call[0]),
             "rescue": sum(per_call[1]) + sum(per_call[2]),
-            "fly": fly_launches, **app_launches, **seq10_launches},
+            "fly": fly_launches, "drive_eval": drive_launches,
+            **app_launches, **seq10_launches},
         "launches_per_tick": {"cold": launches_per["cold"],
                               "warm": launches_per[0],
                               "light_rescue": launches_per[1],
