@@ -34,13 +34,11 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 from typing import NamedTuple
 
 import numpy as np
-import torch
 
 from allocnet_tpu_torch import config
 from allocnet_tpu_torch.models import import_torch
@@ -49,7 +47,7 @@ from allocnet_tpu_torch.ops import admm_chunk, ldl
 from allocnet_tpu_torch.planner import driver as driver_lib
 from allocnet_tpu_torch.planner import planner
 from allocnet_tpu_torch.train import datagen
-from allocnet_tpu_torch.utils.device import resolve_device
+from allocnet_tpu_torch.utils.device import device_line, resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -288,20 +286,6 @@ class LaunchMeter:
                          "k1_per_tick": sorted({a for a, _ in c}),
                          "l1_per_tick": sorted({b for _, b in c})}
         return out
-
-
-def device_line(dev) -> str:
-    """The card's name and power limit as nvidia-smi gives them (a card
-    set below its maximum runs slower under load), or the device type."""
-    if dev.type != "cuda":
-        return dev.type
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.CalledProcessError, IndexError):
-        return torch.cuda.get_device_name(dev)
 
 
 def run_eval(n_maps: int = 10, per_map: int = 5, max_ticks: int = 600,

@@ -8,6 +8,7 @@ a scenario set in batches, aggregated into the reference's metrics.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -38,7 +39,10 @@ class EvalReport(NamedTuple):
 
 
 @torch.no_grad()
-def _run(net, cfg: AllocNetConfig, state, hpolys, seg, ref_times):
+def qp_times(net, cfg: AllocNetConfig, state, hpolys, seg):
+    """The net's (times, tokens or None, segment mask) and the times the QP
+    gets: the net's, at least TIME_MIN on live segments, 1 on padded
+    ones."""
     S = cfg.qp.max_seg
     out = net(packing.pack_state(state), packing.pack_hpolys(hpolys))
     times, tokens = out if isinstance(out, tuple) else (out, None)
@@ -46,6 +50,12 @@ def _run(net, cfg: AllocNetConfig, state, hpolys, seg, ref_times):
                 < seg[:, None]).to(times.dtype)
     times_q = torch.where(seg_mask > 0, torch.clamp_min(times, TIME_MIN),
                           torch.ones_like(times))
+    return times, tokens, seg_mask, times_q
+
+
+@torch.no_grad()
+def _run(net, cfg: AllocNetConfig, state, hpolys, seg, ref_times):
+    times, tokens, seg_mask, times_q = qp_times(net, cfg, state, hpolys, seg)
     data = qp.build_qp(cfg.qp, state, hpolys, times_q, seg,
                        device=times.device)
     sol = admm.solve_qp(data, cfg.solver)
@@ -64,12 +74,15 @@ def _run(net, cfg: AllocNetConfig, state, hpolys, seg, ref_times):
 
 def evaluate(net, cfg: AllocNetConfig, sc: ScenarioBatch,
              batch_size: int = 256, certify: bool = False,
-             extras: bool = False, device=None):
+             extras: bool = False, device=None,
+             batch_ms: list | None = None):
     """Run net and QP over a scenario set on `device` (the card unless the
     caller asks for another; the net must live there).  Returns an
     EvalReport, or (EvalReport, dict of per-scenario arrays) with
     extras=True.  certify adds the host-f64 per-axis box certificate
-    (trajectory.certify_box_host, 5 subdivision levels)."""
+    (trajectory.certify_box_host, 5 subdivision levels).  A `batch_ms`
+    list gets each batch's host milliseconds, from its inputs' upload to
+    its results back on the host."""
     dev = resolve_device(device)
     dtype = next(net.parameters()).dtype
     n = sc.state.shape[0]
@@ -77,6 +90,7 @@ def evaluate(net, cfg: AllocNetConfig, sc: ScenarioBatch,
     cols = [[] for _ in range(6)]
     cof, tq = [], []
     for k in range(0, n, batch_size):
+        t0 = time.perf_counter()
         sl = slice(k, min(k + batch_size, n))
         t = lambda a: torch.as_tensor(a[sl], dtype=dtype, device=dev)
         out = _run(net, cfg, t(sc.state), t(sc.hpolys),
@@ -87,6 +101,8 @@ def evaluate(net, cfg: AllocNetConfig, sc: ScenarioBatch,
         if want_traj:
             cof.append(out[6].cpu().numpy())
             tq.append(out[7].cpu().numpy())
+        if batch_ms is not None:
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
     solved, objs, stops, pseg, tp, tr = (np.concatenate(c) for c in cols)
 
     certified = None

@@ -49,14 +49,16 @@ def save_checkpoint(ckpt_dir: str, net, opt, lr_sched, epoch: int,
     return path
 
 
-def latest_checkpoint(ckpt_dir: str) -> str | None:
+def latest_checkpoint(ckpt_dir: str, suffix: str = ".pt") -> str | None:
+    """The highest-step `checkpoint{step}{suffix}` in ckpt_dir: the port's
+    `.pt` files, or with suffix=".msgpack" the JAX package's."""
     if not os.path.isdir(ckpt_dir):
         return None
     cands = [f for f in os.listdir(ckpt_dir)
-             if f.startswith("checkpoint") and f.endswith(".pt")]
+             if f.startswith("checkpoint") and f.endswith(suffix)]
     if not cands:
         return None
-    cands.sort(key=lambda f: int(f[len("checkpoint"):-len(".pt")]))
+    cands.sort(key=lambda f: int(f[len("checkpoint"):-len(suffix)]))
     return os.path.join(ckpt_dir, cands[-1])
 
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -21,3 +23,17 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run on the CPU")
     return dev
+
+
+def device_line(dev: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi gives them (a card
+    set below its maximum runs slower under load), or the device type."""
+    if dev.type != "cuda":
+        return dev.type
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.CalledProcessError, IndexError):
+        return torch.cuda.get_device_name(dev)

@@ -15,8 +15,12 @@ them with the 10 Hz receding-horizon driver (cold, warm and rescue ticks;
 the kernel held against its plain version on each tick batch, the first
 cold tick against the CPU path), then runs planner/drive_eval's 50-mission
 eval on a cut of 2 maps x 2 missions (every mission arrives; the sampled
-missions held against the CPU's; tick latency by rescue stage).  Then the
-application layer at DEPLOY: generates a certified dataset from a
+missions held against the CPU's; tick latency by rescue stage), then
+train/heldout_eval's evaluation of the three trained nets over the 2,000
+held-out scenarios (gated against runs/mcnemar; the kernel against its
+plain version on the eval's batches; big4's first 256 against the CPU
+path, each differing flag held by a float64 re-check or a rounding
+witness).  Then the application layer at DEPLOY: generates a certified dataset from a
 synthetic point cloud (PCD write, read and crop; corridors and
 certification held against the CPU's; certify sample 80 traced through
 the kernel, the plain chunk on the card and the CPU path),
@@ -122,6 +126,17 @@ DRIVE_GOAL_TOL = 1e-3
 # with no rounding witness (datagen phase): traced through K1, the plain
 # chunk on the card and the CPU path
 TRACE_SAMPLE = 80
+# the held-out eval (train/heldout_eval): every arm over all of
+# data/eval_fresh.npz on the card, gated against runs/mcnemar; big4's
+# first HELDOUT_CPU_N scenarios against the CPU path, where each flag the
+# card drops and the CPU keeps must move when every QP input of its
+# scenario moves by WITNESS_REL of itself (a random sign per entry): in
+# batches of HELDOUT_WITNESS_ROWS rows shared among the scenarios that
+# have not moved, at most HELDOUT_WITNESS_BATCHES of them; one more batch
+# among as many agreeing scenarios may move at most half of them
+HELDOUT_CPU_N = 256
+HELDOUT_WITNESS_ROWS = 128
+HELDOUT_WITNESS_BATCHES = 4
 
 
 # the two kernels' wrappers (set in main): each counts its own launches
@@ -355,11 +370,11 @@ def first_tick(npz, cache_dir, aot_dir=None):
     return 0
 
 
-def solved_in_f64(dcfg, batch, sol):
+def solved_in_f64(dcfg, batch, sol, scfg=None):
     """(B,) bool: whether a certify solve's solutions `sol` (physical
     coefficients and multipliers, any device) pass the solver's solved
-    test when re-evaluated in float64 on the CPU against the QP of the
-    same float32 inputs."""
+    test (of `scfg`, CERTIFY_SOLVER by default) when re-evaluated in
+    float64 on the CPU against the QP of the same float32 inputs."""
     import numpy as np
     from allocnet_tpu_torch import config
     from allocnet_tpu_torch.ops import admm, qp
@@ -375,7 +390,7 @@ def solved_in_f64(dcfg, batch, sol):
     h = qp.tree_flat(qp.ineq_rhs(d), admm.INEQ_KEYS)
     pri, dua, pri_sc, dua_sc = admm._full_residuals(d, x, nu, lam, beq, h,
                                                     with_scales=True)
-    s = config.CERTIFY_SOLVER
+    s = config.CERTIFY_SOLVER if scfg is None else scfg
     obj = qp.objective(d, x)
     return ((pri < s.eps_abs * 10 + s.eps_rel * 10 * pri_sc)
             & (dua < s.eps_abs * 10 + s.eps_rel * 10 * dua_sc)
@@ -425,9 +440,12 @@ def trace_sample(dcfg, batch, b, dev):
     chunk (`admm_chunk_reference`) on the card, and through the CPU path.
     Prints, for sample b, each chunk's outputs (x, z, yh, yeh: max
     difference over the larger side's largest entry, per pair of sides),
-    each polish round's active set (the rows with a nonzero multiplier)
-    and the status test, then the first step where each pair parts: a
-    chunk above CHUNK_TOL, an active set, or the status.  Printed only."""
+    each polish round's active set (the rows with a nonzero multiplier),
+    with each side's input multiplier and slack for a row some side keeps
+    and another drops, and the status test, then the first step where
+    each pair parts: a chunk above CHUNK_TOL, an active set, or the
+    status.  Printed only."""
+    import numpy as np
     import torch
     from allocnet_tpu_torch import config
     from allocnet_tpu_torch.ops import admm, admm_chunk, qp
@@ -438,7 +456,7 @@ def trace_sample(dcfg, batch, b, dev):
     for name, d, chunk in (("K1", dev, k1),
                            ("plain", dev, admm_chunk.admm_chunk_reference),
                            ("CPU", "cpu", k1)):
-        tr = sides[name] = {"chunks": [], "active": []}
+        tr = sides[name] = {"chunks": [], "active": [], "inputs": []}
 
         def rec_chunk(*a, chunk=chunk, tr=tr):
             out = chunk(*a)
@@ -449,10 +467,16 @@ def trace_sample(dcfg, batch, b, dev):
         # which is rec_chunk here: the trace's launches stay out of K1's
         rec_chunk.launches = 0
 
-        def rec_polish(*a, tr=tr, **k):
-            out = polish(*a, **k)
+        def rec_polish(data, scfg, x, beq, h, lam, tr=tr, **k):
+            out = polish(data, scfg, x, beq, h, lam, **k)
             tr["active"].append(frozenset(
                 torch.nonzero(out[2][b]).flatten().tolist()))
+            # the round's inputs: each row's signed multiplier and slack
+            ax = qp.tree_flat(qp.apply_A(data, x), admm.EQ_KEYS
+                              + admm.INEQ_KEYS)[b, beq.shape[1]:]
+            tr["inputs"].append((lam[b].double().cpu(),
+                                 (h[b] - ax).double().cpu(),
+                                 h[b].double().cpu()))
             return out
 
         admm_chunk.admm_chunk, admm.polish = rec_chunk, rec_polish
@@ -468,6 +492,9 @@ def trace_sample(dcfg, batch, b, dev):
     print(f"  trace of certify sample {b} (seg {batch.seg[b]}), K1 on the "
           f"card / plain chunk on the card / CPU path:")
     pairs = (("K1", "CPU"), ("plain", "CPU"), ("K1", "plain"))
+
+    def ulp(h):
+        return float(np.spacing(np.float32(abs(float(h)))))
 
     def rel(u, v):
         return max(float((p - q).abs().max())
@@ -490,6 +517,17 @@ def trace_sample(dcfg, batch, b, dev):
         for u, v in pairs:
             if sets[u] != sets[v]:
                 parted.setdefault((u, v), f"polish round {r}'s active set")
+        # the rows one side keeps and another drops, with the round's
+        # inputs on each side: from round 1 a row stays when its signed
+        # multiplier is positive or its slack is below -1e-7
+        for row in sorted(set().union(*sets.values())
+                          - frozenset.intersection(*sets.values())):
+            print(f"      row {row}: " + "; ".join(
+                f"{s} {'keeps' if row in sets[s] else 'drops'} (multiplier "
+                f"{float(sides[s]['inputs'][r][0][row]):.4e}, slack "
+                f"{float(sides[s]['inputs'][r][1][row]):.3e} = "
+                f"{float(sides[s]['inputs'][r][1][row]) / ulp(sides[s]['inputs'][r][2][row]):+.2f} "
+                f"float32 ulps of its offset)" for s in sides))
     for s, st in ((s, sides[s]["status"]) for s in sides):
         print(f"    status {s}: solved {st[0]} polished {st[1]} pri_rel "
               f"{st[2]:.3e} dua_rel {st[3]:.3e} obj {st[4]:.6f}")
@@ -575,6 +613,187 @@ def drive_eval_phase(dev):
         fail("a drive_eval tick ran without launching both kernels")
     phase("drive_eval", t0)
     return k1n
+
+
+def moving_witness(flags_of, batch, idx, ref, rng, batches):
+    """Draws, in batches of HELDOUT_WITNESS_ROWS rows, of the scenarios
+    idx of `batch` with every QP input (state, corridor, times) moved by
+    WITNESS_REL of itself, a random sign per entry: at most `batches`
+    batches, each shared among the scenarios whose flag (`flags_of(batch)`)
+    has not yet differed from ref (one per idx).  Returns (moves, draws)
+    per scenario."""
+    import numpy as np
+    from allocnet_tpu_torch.utils import scenarios
+
+    move = lambda a: a * (1.0 + WITNESS_REL * rng.choice([-1.0, 1.0],
+                                                         size=a.shape))
+    moves, draws = np.zeros(len(idx), int), np.zeros(len(idx), int)
+    for _ in range(batches):
+        pending = np.nonzero(moves == 0)[0]
+        if not len(pending):
+            break
+        rows = np.resize(pending, HELDOUT_WITNESS_ROWS)
+        b = idx[rows]
+        got = flags_of(scenarios.ScenarioBatch(
+            move(batch.state[b]), move(batch.hpolys[b]),
+            move(batch.times[b]), batch.seg[b]))
+        np.add.at(draws, rows, 1)
+        np.add.at(moves, rows, got != ref[rows])
+    return moves, draws
+
+
+def heldout_phase(dev):
+    """train/heldout_eval on the card: the three arms over all held-out
+    scenarios at EVAL_CFG (`heldout_eval.run`, which raises unless each
+    arm launched both kernels), held to the gates of `heldout_eval.GATES`
+    against runs/mcnemar/results.json (the record comparison and the
+    McNemar pairs printed, not gated).  K1 against its plain version on
+    the first eval batch (B=256) and on the short last one (B=208); the
+    first polish factorization's blocks recorded for the ldl phase (tag
+    "heldout").  big4 on the first HELDOUT_CPU_N scenarios against the
+    CPU path: the net's outputs within 1e-5, and every flag that differs:
+    one the card keeps passes the solved test again in float64, one the
+    card drops and the CPU keeps moves under `moving_witness` on the CPU,
+    which moves at most half of as many agreeing scenarios.  Returns K1's
+    launches on the path and its numbers at both shapes."""
+    import numpy as np
+    import torch
+    from allocnet_tpu_torch.ops import admm, admm_chunk, qp
+    from allocnet_tpu_torch.train import evaluate, heldout_eval
+    from allocnet_tpu_torch.utils import scenarios
+
+    t0 = time.perf_counter()
+    launch, recorded = admm_chunk._launch, {}
+
+    def rec_launch(lib, *a):
+        if int(a[0].shape[0]) not in recorded:
+            recorded[int(a[0].shape[0])] = [
+                t.clone() if torch.is_tensor(t) else t for t in a[:17]]
+        return launch(lib, *a)
+
+    admm_chunk._launch = rec_launch
+    zero_counts()
+    LDL_REC["tag"] = "heldout"
+    try:
+        # the kernels are built and warm by now: no warm-up batch, so the
+        # counts and the recorded batches are the eval's own
+        out, per = heldout_eval.run(device=dev, warmup=False,
+                                    log=lambda s: print("  " + s, flush=True))
+    finally:
+        admm_chunk._launch = launch
+        LDL_REC["tag"] = None
+    k1n = K1.launches
+    l1_ran("heldout")
+    if out["gates"] is None:
+        fail("the record runs/mcnemar is not in the copy")
+    n, ecfg = out["n"], heldout_eval.EVAL_CFG
+    batches = -(-n // heldout_eval.BATCH)
+    results, _ = heldout_eval.read_record(heldout_eval.RECORD_DIR)
+    for arm, rep in out["arms"].items():
+        tm, la, rc = out["timing"][arm], out["launches"][arm], out["record"][arm]
+        print(f"heldout {arm}: success {rep['success_rate']:.4f} (record "
+              f"{results['arms'][arm]['success_rate']:.4f}), stop-token "
+              f"{rep['stop_token_accuracy']:.4f} ("
+              f"{results['arms'][arm]['stop_token_accuracy']:.4f}), time "
+              f"ratio {rep['mean_time_ratio']:.6f} ("
+              f"{results['arms'][arm]['mean_time_ratio']:.6f}), certified "
+              f"of solved {rep['certified_of_solved']:.4f}; flags agree "
+              f"with the record on {rc['solved']['agreement']:.4f} (only "
+              f"ours {rc['solved']['only_ours']}, only the record's "
+              f"{rc['solved']['only_record']}); {tm['wall_s']:.2f} s, "
+              f"{tm['solves_per_s']:.1f} solves/s, ms per batch "
+              + " ".join(f"{v:.1f}" for v in tm["batch_ms"])
+              + f"; launches admm_chunk {la['admm_chunk']}, ldl_block "
+              f"{la['ldl_block']}", flush=True)
+        if la["admm_chunk"] != batches * ecfg.solver.n_chunks:
+            fail(f"heldout {arm} launched admm_chunk {la['admm_chunk']} "
+                 f"times for {batches} batches")
+    for k in heldout_eval.FLAGS:
+        print(f"  McNemar ({k}), ours / record: " + "; ".join(
+            f"{p}: b {v['b_only_first']} / {results[f'mcnemar_{k}'][p]['b_only_first']}"
+            f", c {v['c_only_second']} / {results[f'mcnemar_{k}'][p]['c_only_second']}"
+            f", p {v['p_two_sided']} / {results[f'mcnemar_{k}'][p]['p_two_sided']}"
+            for p, v in out[f"mcnemar_{k}"].items()))
+    print("  gates: " + json.dumps(out["gates"]))
+    if not out["gates"]["passed"]:
+        fail("the held-out eval misses a gate against runs/mcnemar")
+    if sorted(recorded) != sorted({heldout_eval.BATCH,
+                                   n - (batches - 1) * heldout_eval.BATCH}):
+        fail(f"admm_chunk ran at batch sizes {sorted(recorded)}")
+    shapes = {f"B={b}": shape_numbers(admm_chunk, ecfg.qp, a,
+                                      f"held-out eval B={b}")
+              for b, a in sorted(recorded.items(), reverse=True)}
+
+    # big4 on the first HELDOUT_CPU_N scenarios: the card against the CPU
+    sc = heldout_eval.load_scenarios(n=HELDOUT_CPU_N)
+    run_dir = os.path.join(heldout_eval.RUNS, "big4")
+    nets = {d: heldout_eval.load_arm(run_dir, d) for d in (dev, "cpu")}
+    cfg = heldout_eval.arm_config(nets["cpu"].token_thresh)
+    _, ex_cpu = evaluate.evaluate(nets["cpu"], cfg, sc, certify=True,
+                                  extras=True, device="cpu")
+    flags_gpu = per["big4_solved"][:HELDOUT_CPU_N]
+    flags_cpu = ex_cpu["solved"]
+    tq, pseg = {}, {}
+    for d in (dev, "cpu"):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=d)
+        times, _, _, times_q = evaluate.qp_times(
+            nets[d], cfg, t(sc.state), t(sc.hpolys),
+            torch.as_tensor(sc.seg, device=d).long())
+        tq[d], pseg[d] = times_q.cpu().numpy(), (times > 1e-6).sum(1).cpu()
+    terr = float(np.abs(tq[dev] - tq["cpu"]).max() / np.abs(tq["cpu"]).max())
+    print(f"heldout big4, first {HELDOUT_CPU_N} scenarios, card vs CPU: "
+          f"segments predicted equal {bool(torch.equal(pseg[dev], pseg['cpu']))}"
+          f", QP times within {terr:.2e} of the largest; flags agree on "
+          f"{int((flags_gpu == flags_cpu).sum())} of {HELDOUT_CPU_N} (card "
+          f"{flags_gpu.mean():.4f}, CPU {flags_cpu.mean():.4f})", flush=True)
+    if not torch.equal(pseg[dev], pseg["cpu"]) or terr > 1e-5:
+        fail("the net's outputs on the card differ from the CPU's")
+
+    def solve(batch, d):
+        f32 = np.float32
+        return admm.solve_qp(qp.build_qp(
+            cfg.qp, batch.state.astype(f32), batch.hpolys.astype(f32),
+            batch.times.astype(f32), batch.seg, device=d), cfg.solver)
+    qb = {d: scenarios.ScenarioBatch(sc.state, sc.hpolys, tq[d], sc.seg)
+          for d in (dev, "cpu")}
+    sol = solve(qb[dev], dev)
+    again = sol.solved.cpu().numpy()
+    ok64 = solved_in_f64(cfg, qb[dev], sol, cfg.solver)
+    print(f"  card solve again on the same inputs: flags identical "
+          f"{bool((again == flags_gpu).all())}; of its {int(again.sum())} "
+          f"solved {int(ok64[again].sum())} pass the solved test "
+          f"re-evaluated in float64 on the CPU")
+    if (again != flags_gpu).any():
+        fail("the card's held-out flags changed between two runs")
+    if not ok64[again].all():
+        fail(f"held-out scenarios {np.nonzero(again & ~ok64)[0].tolist()} "
+             f"are solved on the card and fail the solved test in float64")
+    bad = np.nonzero(flags_gpu != flags_cpu)[0]
+    dropped = bad[~flags_gpu[bad]]
+    if len(bad):
+        rng = np.random.default_rng(WITNESS_SEED)
+        flags_of = lambda b: solve(b, "cpu").solved.cpu().numpy()
+        moves, draws = moving_witness(flags_of, qb["cpu"], dropped,
+                                      flags_cpu[dropped], rng,
+                                      HELDOUT_WITNESS_BATCHES)
+        ctrl = np.sort(rng.choice(np.nonzero(flags_gpu == flags_cpu)[0],
+                                  len(bad), replace=False))
+        cm, _ = moving_witness(flags_of, qb["cpu"], ctrl, flags_cpu[ctrl],
+                               rng, 1)
+        print(f"  differing flags {bad.tolist()} (card keeps "
+              f"{bad[flags_gpu[bad]].tolist()}: solved in float64); "
+              f"rounding witness on the CPU, moves / draws of each the card "
+              f"drops: " + ", ".join(f"{b}: {m}/{d}" for b, m, d in
+                                     zip(dropped, moves, draws))
+              + f"; control moved {ctrl[cm > 0].tolist()} of {len(ctrl)}")
+        if (moves == 0).any():
+            fail(f"held-out scenarios {dropped[moves == 0].tolist()} are "
+                 f"dropped on the card and kept on the CPU under every "
+                 f"move of their inputs")
+        if 2 * int((cm > 0).sum()) > len(ctrl):
+            fail("the held-out rounding witness moves most of the control")
+    phase("heldout", t0)
+    return k1n, shapes
 
 
 def application_phases(dev, drv, params, cold_inputs, mission):
@@ -1198,7 +1417,7 @@ def seq10_phase(dev, qp_oracle):
 
 
 LDL_TAGS = ("deploy solve", "cold tick", "warm tick", "rescue tick",
-            "certify", "S=10 solve")
+            "heldout", "certify", "S=10 solve")
 
 
 def ldl_phase(dev, drv, tick_inputs, data, scfg):
@@ -1979,6 +2198,7 @@ def main():
                                            recorded[batch], batch)
     phase("fly", t0)
     drive_launches = drive_eval_phase(dev)
+    heldout_launches, heldout_shapes = heldout_phase(dev)
 
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
@@ -2000,12 +2220,14 @@ def main():
             "cold_tick": sum(per_call["cold"]), "warm_tick": sum(per_call[0]),
             "rescue": sum(per_call[1]) + sum(per_call[2]),
             "fly": fly_launches, "drive_eval": drive_launches,
+            "heldout": heldout_launches,
             **app_launches, **seq10_launches},
         "launches_per_tick": {"cold": launches_per["cold"],
                               "warm": launches_per[0],
                               "light_rescue": launches_per[1],
                               "heavy_rescue": launches_per[2]},
         "tick_shapes": tick_shapes,
+        "heldout_shapes": heldout_shapes,
         "certify_shape": app_shapes["certify"],
         "jerk_shape": app_shapes["jerk"],
         "seq10_shape": seq10_shape,
