@@ -20,20 +20,24 @@ train/heldout_eval's evaluation of the three trained nets over the 2,000
 held-out scenarios (gated against runs/mcnemar; the kernel against its
 plain version on the eval's batches; big4's first 256 against the CPU
 path, each differing flag held by a float64 re-check or a rounding
-witness).  Then the application layer at DEPLOY: generates a certified dataset from a
-synthetic point cloud (PCD write, read and crop; corridors and
-certification held against the CPU's; certify sample 80 traced through
-the kernel, the plain chunk on the card and the CPU path),
-exports the net as TorchScript and the replanning step as a
-`torch.export` program (held against the eager ones), starts two fresh
-processes to their first tick with and without the prebuilt libraries of
-`Driver.save_aot`, chains 20 ticks on the card (`onchip_tick_cost`), runs
-the solve-scaling sweep on the card and holds the kernel against its
-plain version at the certify shape and at order 3 (min-jerk).  Then the
-ten-segment operating point, and last the `ldl` phase: ldl_block against
-its plain version, exactly, on the diagonal blocks that the polish factored
-on the way (deploy solve, cold, warm and rescue ticks, certify, S=10) and
-on random blocks (B=1024, and B=1025, whose last thread block is short),
+witness), then planner/refine_eval's time refinement of big3's times over
+the same 2,000 scenarios in chunks of 500 (gated against runs/refine;
+exact launch counts; the kernel against its plain version at B=500; a
+chunk's host wall split by section).  Then the application layer at
+DEPLOY: generates a certified dataset from a synthetic point cloud (PCD
+write, read and crop; corridors and certification held against the CPU's;
+certify sample 80 traced through the kernel, the plain chunk on the card
+and the CPU path), exports the net as TorchScript and the replanning
+step as a `torch.export` program (held against the eager ones), starts
+two fresh processes to their first tick with and without the prebuilt
+libraries of `Driver.save_aot`, chains 20 ticks on the card
+(`onchip_tick_cost`), runs the solve-scaling sweep on the card and holds
+the kernel against its plain version at the certify shape and at order 3
+(min-jerk).  Then the ten-segment operating point, and last the `ldl`
+phase: ldl_block against its plain version, exactly, on the diagonal
+blocks that the polish factored on the way (deploy solve, cold, warm and
+rescue ticks, held-out eval, refine eval, certify, S=10) and on random
+blocks (B=1024, and B=1025, whose last thread block is short),
 non-finite scenarios kept to themselves, and all kernel launches per
 factorization, solve and tick with the plain version on the card and with
 the kernel.
@@ -275,6 +279,20 @@ def record_ldl(ldl, L1):
             ldl.ldl_block = L1
 
     ldl.ldl_factor = recording_factor
+
+
+def first_launch_per_batch(launch, recorded):
+    """admm_chunk._launch that keeps, in `recorded` by batch size, the
+    first arguments (the kernel's tensors, n_iters, sigma, alpha) of each
+    batch size it launches."""
+    import torch
+
+    def rec_launch(lib, *a):
+        if int(a[0].shape[0]) not in recorded:
+            recorded[int(a[0].shape[0])] = [
+                t.clone() if torch.is_tensor(t) else t for t in a[:17]]
+        return launch(lib, *a)
+    return rec_launch
 
 
 def kernel_check(k1, ref, a, what):
@@ -664,14 +682,7 @@ def heldout_phase(dev):
 
     t0 = time.perf_counter()
     launch, recorded = admm_chunk._launch, {}
-
-    def rec_launch(lib, *a):
-        if int(a[0].shape[0]) not in recorded:
-            recorded[int(a[0].shape[0])] = [
-                t.clone() if torch.is_tensor(t) else t for t in a[:17]]
-        return launch(lib, *a)
-
-    admm_chunk._launch = rec_launch
+    admm_chunk._launch = first_launch_per_batch(launch, recorded)
     zero_counts()
     LDL_REC["tag"] = "heldout"
     try:
@@ -794,6 +805,131 @@ def heldout_phase(dev):
             fail("the held-out rounding witness moves most of the control")
     phase("heldout", t0)
     return k1n, shapes
+
+
+def refine_eval_launches(cfg, steps):
+    """(K1, L1) launches one chunk of planner/refine_eval must make: ten
+    solves (the one at the net's times and the one at the refined times,
+    and in refine.refine_times the differentiable solve at the start, the
+    forward solve at the raw input and one per step), each n_chunks K1
+    launches and, per polish round, 1 + polish_drop_passes factorizations
+    of the padded KKT (n_var + n_eq + max_active rows, in 64-column
+    blocks), one L1 launch per block; the backward's LU launches
+    neither."""
+    q, s = cfg.qp, cfg.solver
+    solves = 2 + 2 + steps
+    blocks = -(-(q.n_var + q.n_eq + s.max_active) // 64)
+    return (solves * s.n_chunks,
+            solves * s.polish_rounds * (1 + s.polish_drop_passes) * blocks)
+
+
+def refine_eval_phase(dev):
+    """planner/refine_eval on the card: all 2,000 held-out scenarios in
+    chunks of 500 at the script's point (`refine_eval.run`, which raises
+    unless each chunk launched both kernels), held to `refine_eval.GATES`
+    against runs/refine/results_full.json and the JAX package's CPU run
+    (`refine_eval.REFERENCE`); each chunk's K1 and L1
+    launches exactly as `refine_eval_launches` derives them.  K1 against
+    its plain version on its first launch at B=500 (250 iterations, res
+    10); the first polish factorization's blocks recorded for the ldl
+    phase (tag "refine_eval").  Then the first chunk once more with its
+    host wall split into the net, the forward solves (ADMM and polish),
+    the polish alone, the implicit KKT backward and the rest.  Returns
+    K1's launches on the path, its numbers at B=500 and the split."""
+    import numpy as np
+    import torch
+    from allocnet_tpu_torch.ops import admm, admm_chunk, qp_diff
+    from allocnet_tpu_torch.planner import refine_eval
+
+    t0 = time.perf_counter()
+    launch, recorded = admm_chunk._launch, {}
+    admm_chunk._launch = first_launch_per_batch(launch, recorded)
+    zero_counts()
+    LDL_REC["tag"] = "refine_eval"
+    try:
+        # the kernels are built and warm by now: no warm-up chunk
+        out = refine_eval.run(device=dev, warmup=False,
+                              log=lambda s: print("  " + s, flush=True))
+    finally:
+        admm_chunk._launch = launch
+        LDL_REC["tag"] = None
+    k1n = K1.launches
+    l1_ran("refine_eval")
+    if out["gates"] is None:
+        fail("the record runs/refine/results_full.json is not in the copy")
+    print("refine_eval: " + "; ".join(
+        f"{f} {v['ours']:.6g} ({k} {v[k]:.6g})"
+        for f, v in out["gates"]["fields"].items()
+        for k in ("record", "reference") if k in v)
+        + f"; flags agreeing with the JAX CPU run {out['flags_agree']}; "
+        f"{out['wall_s']:.2f} s, {out['scenarios_per_s']:.1f} scenarios/s",
+        flush=True)
+    want = refine_eval_launches(refine_eval.CFG, refine_eval.STEPS)
+    chunks = out["chunks"]
+    got = [(c["launches"]["admm_chunk"], c["launches"]["ldl_block"])
+           for c in chunks]
+    print(f"  launches per chunk (admm_chunk, ldl_block): {got}, expected "
+          f"{want} each; ms per chunk: " + "; ".join(
+              f"{c['wall_s'] * 1e3:.1f} = net {c['net_s'] * 1e3:.1f} + solve0 "
+              f"{c['solve0_s'] * 1e3:.1f} + refine {c['refine_s'] * 1e3:.1f} "
+              f"+ solve1 {c['solve1_s'] * 1e3:.1f}" for c in chunks))
+    print("  gates: " + json.dumps(out["gates"]))
+    n = len(refine_eval.read_scenarios(False)[2])
+    if out["n"] != n or len(chunks) != -(-n // refine_eval.CHUNK):
+        fail(f"refine_eval ran {out['n']} scenarios of {n} in {len(chunks)} "
+             f"chunks")
+    if any(g != want for g in got) or k1n != want[0] * len(chunks):
+        fail(f"refine_eval launched (admm_chunk, ldl_block) {got} per chunk, "
+             f"expected {want}")
+    if not out["gates"]["passed"]:
+        fail("the refine eval misses a gate (runs/refine or the JAX CPU "
+             "reference)")
+    if sorted(recorded) != sorted({c["scenarios"] for c in chunks}):
+        fail(f"admm_chunk ran at batch sizes {sorted(recorded)}")
+    shape = shape_numbers(admm_chunk, refine_eval.CFG.qp,
+                          recorded[refine_eval.CHUNK],
+                          f"refine eval B={refine_eval.CHUNK}")
+
+    # the first chunk again, its host wall split by section (each section
+    # ends in a synchronize, which the split's wall includes)
+    split = {"forward_solves_s": 0.0, "polish_s": 0.0, "backward_s": 0.0}
+    solve_qp, polish = admm.solve_qp, admm.polish
+    backward = qp_diff._ImplicitSolve.backward
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t1
+            return r
+        return run
+
+    state, hpolys, seg = refine_eval.read_scenarios(False, refine_eval.CHUNK)
+    net = refine_eval.load_net(dev)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    admm.solve_qp = timed("forward_solves_s", solve_qp)
+    admm.polish = timed("polish_s", polish)
+    qp_diff._ImplicitSolve.backward = staticmethod(timed("backward_s",
+                                                         backward))
+    try:
+        _, sec = refine_eval.run_chunk(net, t(state), t(hpolys),
+                                       torch.as_tensor(seg, device=dev).long())
+    finally:
+        admm.solve_qp, admm.polish = solve_qp, polish
+        qp_diff._ImplicitSolve.backward = staticmethod(backward)
+    wall = sum(sec.values())
+    split.update(net_s=sec["net_s"], wall_s=wall, other_s=wall - sec["net_s"]
+                 - split["forward_solves_s"] - split["backward_s"])
+    print(f"  first chunk again, host ms: {wall * 1e3:.1f} = net "
+          f"{split['net_s'] * 1e3:.1f} + 10 forward solves "
+          f"{split['forward_solves_s'] * 1e3:.1f} (polish "
+          f"{split['polish_s'] * 1e3:.1f} of it) + 7 implicit KKT backwards "
+          f"{split['backward_s'] * 1e3:.1f} + the rest "
+          f"{split['other_s'] * 1e3:.1f}", flush=True)
+    phase("refine_eval", t0)
+    return k1n, shape, split
 
 
 def application_phases(dev, drv, params, cold_inputs, mission):
@@ -1417,7 +1553,7 @@ def seq10_phase(dev, qp_oracle):
 
 
 LDL_TAGS = ("deploy solve", "cold tick", "warm tick", "rescue tick",
-            "heldout", "certify", "S=10 solve")
+            "heldout", "refine_eval", "certify", "S=10 solve")
 
 
 def ldl_phase(dev, drv, tick_inputs, data, scfg):
@@ -2199,6 +2335,7 @@ def main():
     phase("fly", t0)
     drive_launches = drive_eval_phase(dev)
     heldout_launches, heldout_shapes = heldout_phase(dev)
+    refeval_launches, refine_shape, refine_split = refine_eval_phase(dev)
 
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
@@ -2221,6 +2358,7 @@ def main():
             "rescue": sum(per_call[1]) + sum(per_call[2]),
             "fly": fly_launches, "drive_eval": drive_launches,
             "heldout": heldout_launches,
+            "refine_eval": refeval_launches,
             **app_launches, **seq10_launches},
         "launches_per_tick": {"cold": launches_per["cold"],
                               "warm": launches_per[0],
@@ -2228,6 +2366,8 @@ def main():
                               "heavy_rescue": launches_per[2]},
         "tick_shapes": tick_shapes,
         "heldout_shapes": heldout_shapes,
+        "refine_eval_shape": refine_shape,
+        "refine_eval_split": refine_split,
         "certify_shape": app_shapes["certify"],
         "jerk_shape": app_shapes["jerk"],
         "seq10_shape": seq10_shape,
