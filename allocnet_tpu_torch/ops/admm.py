@@ -280,14 +280,20 @@ def _top_k(score: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def polish(data: QPData, scfg: SolverConfig, x, beq_flat, h_flat, lam_flat,
-           refine_sel: bool = False):
+           refine_sel: bool = False, *, trace=None):
     """Active-set KKT solve with regularization and iterative refinement.
     Returns (x_pol, nu_pol, lam_full_pol, idx).
 
     Round 0 (refine_sel False) selects rows with a positive dual estimate or
     near-zero slack; later rounds take signed multipliers from the previous
     polish and keep a row only if its multiplier is positive or it is
-    strictly violated."""
+    strictly violated.
+
+    `trace`, when given, is called once per drop pass with a dict of that
+    pass's (B, K) tensors over the gathered rows `idx`: `lam` (signed
+    multipliers) and `gx_h` (G x - h at the pass's point), the keep
+    threshold `lam_thr` (B, 1), `active_in` and `active_out`; it changes
+    no output."""
     cfg = data.cfg
     dtype, dev = x.dtype, x.device
     B = x.shape[0]
@@ -393,8 +399,13 @@ def polish(data: QPData, scfg: SolverConfig, x, beq_flat, h_flat, lam_flat,
         lam_act = sol[:, n + m_eq:]
         lam_mag = torch.clamp_min(lam_act.abs().amax(1, keepdim=True), 1.0)
         keep = lam_act > -1e-7 * lam_mag
-        viol = (torch.einsum('bkn,bn->bk', G_act, sol[:, :n]) - h_act) > 1e-7
-        active = (active & keep) | viol
+        gx_h = torch.einsum('bkn,bn->bk', G_act, sol[:, :n]) - h_act
+        viol = gx_h > 1e-7
+        active_in, active = active, (active & keep) | viol
+        if trace is not None:
+            trace({"idx": idx, "lam": lam_act, "gx_h": gx_h,
+                   "lam_thr": -1e-7 * lam_mag, "active_in": active_in,
+                   "active_out": active})
         sol = kkt_solve(active)
 
     x_pol = sol[:, :n].reshape(x.shape)

@@ -23,7 +23,13 @@ path, each differing flag held by a float64 re-check or a rounding
 witness), then planner/refine_eval's time refinement of big3's times over
 the same 2,000 scenarios in chunks of 500 (gated against runs/refine;
 exact launch counts; the kernel against its plain version at B=500; a
-chunk's host wall split by section).  Then the application layer at
+chunk's host wall split by section), then planner/frontend_eval's front
+end at DEPLOY: the route-search curve on a cut (map 200 x 3 pairs, arms up
+to 5,000 iterations), all 20 cold plans split into path, corridor and net
++ QP (one traced under torch.profiler) and the 20 pipelined plans, gated
+against the JAX package's CPU run (every cold plan launching both
+kernels; the kernel against its plain version on a cold-plan batch).
+Then the application layer at
 DEPLOY: generates a certified dataset from a synthetic point cloud (PCD
 write, read and crop; corridors and certification held against the CPU's;
 certify sample 80 traced through the kernel, the plain chunk on the card
@@ -36,7 +42,7 @@ the kernel against its plain version at the certify shape and at order 3
 (min-jerk).  Then the ten-segment operating point, and last the `ldl`
 phase: ldl_block against its plain version, exactly, on the diagonal
 blocks that the polish factored on the way (deploy solve, cold, warm and
-rescue ticks, held-out eval, refine eval, certify, S=10) and on random
+rescue ticks, held-out eval, refine eval, front end, certify, S=10) and on random
 blocks (B=1024, and B=1025, whose last thread block is short),
 non-finite scenarios kept to themselves, and all kernel launches per
 factorization, solve and tick with the plain version on the card and with
@@ -141,6 +147,12 @@ TRACE_SAMPLE = 80
 HELDOUT_CPU_N = 256
 HELDOUT_WITNESS_ROWS = 128
 HELDOUT_WITNESS_BATCHES = 4
+# the front end (planner/frontend_eval): the curve cut to the first
+# FRONTEND_PAIRS scenarios of map 200 at arms up to FRONTEND_MAX_CAP
+# iterations (no quality run: its rrt_star arm is the 40,000-iteration
+# search), every cold plan and pipelined plan
+FRONTEND_PAIRS = 3
+FRONTEND_MAX_CAP = 5000
 
 
 # the two kernels' wrappers (set in main): each counts its own launches
@@ -460,7 +472,9 @@ def trace_sample(dcfg, batch, b, dev):
     difference over the larger side's largest entry, per pair of sides),
     each polish round's active set (the rows with a nonzero multiplier),
     with each side's input multiplier and slack for a row some side keeps
-    and another drops, and the status test, then the first step where
+    and another drops and, at the round's drop pass (`admm.polish`'s
+    `trace`), that row's multiplier against the keep threshold and its
+    G x - h, and the status test, then the first step where
     each pair parts: a chunk above CHUNK_TOL, an active set, or the
     status.  Printed only."""
     import numpy as np
@@ -474,7 +488,8 @@ def trace_sample(dcfg, batch, b, dev):
     for name, d, chunk in (("K1", dev, k1),
                            ("plain", dev, admm_chunk.admm_chunk_reference),
                            ("CPU", "cpu", k1)):
-        tr = sides[name] = {"chunks": [], "active": [], "inputs": []}
+        tr = sides[name] = {"chunks": [], "active": [], "inputs": [],
+                            "drops": []}
 
         def rec_chunk(*a, chunk=chunk, tr=tr):
             out = chunk(*a)
@@ -486,7 +501,18 @@ def trace_sample(dcfg, batch, b, dev):
         rec_chunk.launches = 0
 
         def rec_polish(data, scfg, x, beq, h, lam, tr=tr, **k):
-            out = polish(data, scfg, x, beq, h, lam, **k)
+            # each drop pass's values of sample b, by flat row
+            passes = []
+            tr["drops"].append(passes)
+
+            def drop(d):
+                v = {key: d[key][b].tolist() for key in d}
+                passes.append({row: {key: v[key][j] for key in (
+                    "lam", "gx_h", "active_in", "active_out")}
+                    | {"lam_thr": v["lam_thr"][0]}
+                    for j, row in enumerate(v["idx"])})
+
+            out = polish(data, scfg, x, beq, h, lam, trace=drop, **k)
             tr["active"].append(frozenset(
                 torch.nonzero(out[2][b]).flatten().tolist()))
             # the round's inputs: each row's signed multiplier and slack
@@ -546,6 +572,18 @@ def trace_sample(dcfg, batch, b, dev):
                 f"{float(sides[s]['inputs'][r][1][row]):.3e} = "
                 f"{float(sides[s]['inputs'][r][1][row]) / ulp(sides[s]['inputs'][r][2][row]):+.2f} "
                 f"float32 ulps of its offset)" for s in sides))
+            # the drop pass after the round's first KKT solve: a row stays
+            # when its multiplier is above the keep threshold or G x - h >
+            # 1e-7 (ops/admm.py, polish)
+            for p in range(len(sides["CPU"]["drops"][r])):
+                print(f"      row {row}, drop pass {p}: " + "; ".join(
+                    f"{s} " + (
+                        "not gathered" if row not in sides[s]["drops"][r][p]
+                        else "multiplier {lam:.4e} vs keep threshold "
+                        "{lam_thr:.3e}, G x - h {gx_h:+.3e} (against "
+                        "1e-7), active {active_in} -> {active_out}".format(
+                            **sides[s]["drops"][r][p][row]))
+                    for s in sides))
     for s, st in ((s, sides[s]["status"]) for s in sides):
         print(f"    status {s}: solved {st[0]} polished {st[1]} pri_rel "
               f"{st[2]:.3e} dua_rel {st[3]:.3e} obj {st[4]:.6f}")
@@ -930,6 +968,76 @@ def refine_eval_phase(dev):
           f"{split['other_s'] * 1e3:.1f}", flush=True)
     phase("refine_eval", t0)
     return k1n, shape, split
+
+
+def frontend_phase(dev):
+    """planner/frontend_eval on the card (`frontend_eval.run`, which
+    raises unless every kept cold plan and pipelined plan launched both
+    kernels): the curve on its cut, the 20 cold plans (maps 210-211) split
+    into path, corridor and net + QP with one plan traced per phase under
+    torch.profiler, the 20 pipelined plans; fails unless every gate
+    against the JAX CPU reference holds (`frontend_eval.gates`: routes,
+    kept plans and flags scenario by scenario, the card's corridors
+    against the CPU's, pipelined flags against the split path's).  K1
+    against its plain version on the first cold-plan batch (the hedge,
+    B=3); the first cold plan's polish blocks recorded for the ldl phase
+    (tag "frontend").  Returns K1's launches on the path and its numbers
+    at the cold-plan batch."""
+    from allocnet_tpu_torch import config
+    from allocnet_tpu_torch.ops import admm_chunk
+    from allocnet_tpu_torch.planner import frontend_eval
+
+    t0 = time.perf_counter()
+    launch, recorded = admm_chunk._launch, {}
+    admm_chunk._launch = first_launch_per_batch(launch, recorded)
+    zero_counts()
+    LDL_REC["tag"] = "frontend"
+    try:
+        out = frontend_eval.run(dev, maps=1, pairs=FRONTEND_PAIRS,
+                                max_cap=FRONTEND_MAX_CAP, with_quality=False,
+                                cut_cold=False,
+                                log=lambda s: print("  " + s, flush=True))
+    finally:
+        admm_chunk._launch = launch
+        LDL_REC["tag"] = None
+    k1n = K1.launches
+    l1_ran("frontend")
+    cp, pp = out["cold_plan"], out["cold_plan_pipelined"]
+    kept = [p for p in cp["plans"] if p["solved"] is not None]
+    print(f"frontend: {len(cp['plans'])} cold plans, {len(kept)} kept: path "
+          f"p50 {cp['path_ms_p50']:.2f} ms, corridor p50 "
+          f"{cp['corridor_ms_p50']:.2f} ms, net + QP p50 "
+          f"{cp['net_qp_ms_p50']:.2f} ms; total p50 {cp['total_ms_p50']:.2f}"
+          f" p95 {cp['total_ms_p95']:.2f} ms over {cp['n_plans']} plans, "
+          f"solved {cp['solved_frac']:.4f}; pipelined p50 "
+          f"{pp['total_ms_p50']:.2f} p95 {pp['total_ms_p95']:.2f} ms, solved "
+          f"{pp['solved_frac']:.4f}", flush=True)
+    tr = cp["trace"]
+    print(f"  plan {tr['k']} traced, per phase (torch.profiler): " + "; ".join(
+        f"{ph} wall {tr[ph]['wall_ms']:.2f} ms, device busy "
+        f"{tr[ph]['busy_ms']:.3f} ms, idle {tr[ph]['idle']:.3f}, "
+        f"{tr[ph]['launches']:g} launches (K1 {tr[ph]['k1_launches']:g}, "
+        f"{tr[ph]['k1_ms']:.3f} ms; L1 {tr[ph]['l1_launches']:g}, "
+        f"{tr[ph]['l1_ms']:.3f} ms)" for ph in frontend_eval.PHASES))
+    print("  launches per kept cold plan (admm_chunk, ldl_block): "
+          + ", ".join(f"{p['k']}: {p['k1']}/{p['l1']}" for p in kept)
+          + "; gates: " + json.dumps(out["gates"]), flush=True)
+    if not out["gates"]["passed"]:
+        fail("the front-end eval misses a gate against the JAX CPU "
+             "reference")
+    missed = [p["k"] for p in cp["plans"] + pp["plans"]
+              if p["solved"] is not None and min(p["k1"], p["l1"]) < 1]
+    if missed or not kept or tr is None:
+        fail(f"front-end plans {missed} ran without both kernels")
+    if sorted(recorded) != [3]:
+        fail(f"admm_chunk ran at batch sizes {sorted(recorded)} on the "
+             f"front end")
+    shape = shape_numbers(admm_chunk, config.DEPLOY.qp, recorded[3],
+                          "frontend cold plan")
+    phase("frontend", t0)
+    return k1n, shape, {"total_ms_p50": cp["total_ms_p50"],
+                        "net_qp_ms_p50": cp["net_qp_ms_p50"],
+                        "trace": tr}
 
 
 def application_phases(dev, drv, params, cold_inputs, mission):
@@ -1553,7 +1661,7 @@ def seq10_phase(dev, qp_oracle):
 
 
 LDL_TAGS = ("deploy solve", "cold tick", "warm tick", "rescue tick",
-            "heldout", "refine_eval", "certify", "S=10 solve")
+            "heldout", "refine_eval", "frontend", "certify", "S=10 solve")
 
 
 def ldl_phase(dev, drv, tick_inputs, data, scfg):
@@ -2336,6 +2444,7 @@ def main():
     drive_launches = drive_eval_phase(dev)
     heldout_launches, heldout_shapes = heldout_phase(dev)
     refeval_launches, refine_shape, refine_split = refine_eval_phase(dev)
+    frontend_launches, frontend_shape, frontend_split = frontend_phase(dev)
 
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
@@ -2359,6 +2468,7 @@ def main():
             "fly": fly_launches, "drive_eval": drive_launches,
             "heldout": heldout_launches,
             "refine_eval": refeval_launches,
+            "frontend": frontend_launches,
             **app_launches, **seq10_launches},
         "launches_per_tick": {"cold": launches_per["cold"],
                               "warm": launches_per[0],
@@ -2368,6 +2478,8 @@ def main():
         "heldout_shapes": heldout_shapes,
         "refine_eval_shape": refine_shape,
         "refine_eval_split": refine_split,
+        "frontend_shape": frontend_shape,
+        "frontend_split": frontend_split,
         "certify_shape": app_shapes["certify"],
         "jerk_shape": app_shapes["jerk"],
         "seq10_shape": seq10_shape,

@@ -166,3 +166,30 @@ def test_ldl_sign_vector_and_bad_size():
     np.testing.assert_array_equal(d1.numpy(), d2.numpy())
     with pytest.raises(ValueError):
         ldl.ldl_factor(torch.tensor(K)[:, :60, :60], nb=32)
+
+
+def test_polish_trace_changes_no_output(monkeypatch):
+    """polish's `trace` callback (the drop pass's values, which
+    chip_smoke.trace_sample prints) is called once per drop pass of every
+    round, its values give the pass's new active set, and the solve's
+    outputs stay bit for bit the same as without it (CERTIFY_SOLVER: 6
+    rounds, one drop pass each)."""
+    from allocnet_tpu_torch.config import CERTIFY_SOLVER as scfg
+    data, _ = _both(torch.float32, B=4, seed=5)
+    calls, polish = [], admm.polish
+    monkeypatch.setattr(admm, "polish", lambda *a, **k: polish(
+        *a, trace=calls.append, **k))
+    traced = admm.solve_qp(data, scfg)
+    monkeypatch.undo()
+    plain = admm.solve_qp(data, scfg)
+    assert len(calls) == scfg.polish_rounds * scfg.polish_drop_passes
+    for d in calls:
+        assert d["lam"].shape == d["gx_h"].shape == d["idx"].shape == (
+            4, scfg.max_active)
+        assert torch.equal(d["active_out"], (
+            d["active_in"] & (d["lam"] > d["lam_thr"])) | (d["gx_h"] > 1e-7))
+    for name, a, b in zip(plain._fields, traced, plain):
+        for u, v in (zip(a.values(), b.values()) if isinstance(a, dict)
+                     else [(a, b)]):
+            assert torch.equal(u, v) and torch.equal(
+                u.view(torch.int8), v.view(torch.int8)), name
