@@ -6,17 +6,19 @@ the card unless it says otherwise.  --checkpoint takes a TorchScript .pt
 .msgpack (data/params/*.msgpack).
 
 Usage:
-  python -m allocnet_tpu_torch.cli datagen --out data/dataset.h5 --n 512
-  python -m allocnet_tpu_torch.cli train --dataset data/dataset.h5 \\
+  python -m allocnet_tpu_torch.cli datagen --out data/dataset.npz --n 512
+  python -m allocnet_tpu_torch.cli train --dataset data/dataset.npz \\
       --workdir runs/e0
-  python -m allocnet_tpu_torch.cli eval --dataset data/dataset.h5 \\
+  python -m allocnet_tpu_torch.cli eval --dataset data/dataset.npz \\
       --checkpoint data/params/seq5_tokenthresh0_35.msgpack
   python -m allocnet_tpu_torch.cli plan --pcd map.pcd --start 1 1 1.5 \\
       --goal 18 18 2 --checkpoint ... --out artifacts/
   python -m allocnet_tpu_torch.cli export --checkpoint ... --out exported/
 
-datagen --out and train/eval --dataset read and write HDF5 (h5py); plan
-writes a PNG (matplotlib).
+datagen --out and train/eval --dataset take a .npz file (state, hpolys,
+times, seg, as train/corpus writes) or HDF5 (.h5, or for train/eval a
+directory of .h5 shards; needs h5py), by the path's suffix; plan writes a
+PNG (matplotlib).
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def cmd_train(args):
     cfg = _cfg(args)
     cfg = dataclasses.replace(cfg, train=TrainConfig(
         batch_size=args.batch_size, max_epochs=args.epochs))
-    sc = ds_lib.read_h5(args.dataset, cfg.qp)
+    sc = ds_lib.read_scenarios(args.dataset, cfg.qp)
     loader = ds_lib.Loader(sc, batch_size=cfg.train.batch_size)
     net = ConvLSTMAllocNet(seq_len=cfg.model.seq_len,
                            hidden_size=args.hidden,
@@ -87,7 +89,7 @@ def cmd_eval(args):
     from allocnet_tpu_torch.train import evaluate
     cfg = _cfg(args)
     net = _load_net(args)
-    sc = ds_lib.read_h5(args.dataset, cfg.qp)
+    sc = ds_lib.read_scenarios(args.dataset, cfg.qp)
     rep = evaluate.evaluate(net, cfg, sc, device=args.device)
     print(json.dumps({k: float(v) for k, v in rep._asdict().items()}))
 

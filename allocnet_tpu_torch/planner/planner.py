@@ -177,10 +177,17 @@ def plan_corridors_batch(pmap: PlannerMap, starts: np.ndarray,
     plan in one batched call and every shortcut overlap LP in another
     (sfc.convex_cover_many, short_cut_many); routes run serially on the
     host."""
+    routes = [search_route(pmap, starts[b], goals[b], cfg.corridor, seed + b)
+              for b in range(len(starts))]
+    return corridors_of_routes(pmap, routes, cfg, device=device, dtype=dtype)
+
+
+def corridors_of_routes(pmap: PlannerMap, routes: list, cfg: AllocNetConfig,
+                        device=None, dtype=torch.float32) -> list:
+    """`plan_corridors_batch` after its route searches: a CorridorPlan per
+    route (None: no path)."""
     ccfg = cfg.corridor
-    B = len(starts)
-    routes = [search_route(pmap, starts[b], goals[b], ccfg, seed + b)
-              for b in range(B)]
+    B = len(routes)
     ok_idx = [b for b, r in enumerate(routes) if r is not None]
     covers = sfc.convex_cover_many([routes[b] for b in ok_idx], pmap.surf,
                                    pmap.lo, pmap.hi, ccfg, device=device,

@@ -1,5 +1,5 @@
 """Scenario and dataset generation: maps -> corridors -> certified
-samples -> HDF5.
+samples -> HDF5 or .npz.
 
 Port of `allocnet_tpu/train/datagen.py` (the counterpart of the
 reference's offline pipeline, pcd_segmentation.py + corridor_generator.py
@@ -132,14 +132,19 @@ def generate(
     time_slack: float = 2.2,
     device=None,
     timer=None,
+    record: dict | None = None,
 ) -> ScenarioBatch:
     """Sample (start, goal) pairs on a map, build corridors, derive
     reference times and keep the samples that certify; optionally write
-    dataset.h5 (`dataset.write_h5`, which needs h5py).
+    them to `out_path` (`dataset.write_scenarios`: .npz, or HDF5, which
+    needs h5py).
 
     Runs on the card unless `device` says otherwise; the corridors are
     CORRIDOR_DTYPE, the certification solve float32.  `timer` (utils/timing.PhaseTimer)
-    records the phases map, corridors, interiors and certify."""
+    records the phases map, corridors, interiors and certify.  `record`,
+    a dict, receives each candidate chunk as (starts, goals, route seed,
+    CorridorPlans) under "chunks", the batch that reached the
+    certification under "batch" and its flags under "flags"."""
     from allocnet_tpu_torch.planner import planner as planner_lib
     from allocnet_tpu_torch.planner.sfc import _bucket
 
@@ -178,11 +183,14 @@ def generate(
             cand_g.append(goal)
         if not cand_s:
             break
+        rseed = int(rng.integers(1 << 30))
         with phase("corridors"):
             plans = planner_lib.plan_corridors_batch(
                 pmap, np.asarray(cand_s), np.asarray(cand_g), cfg,
-                seed=int(rng.integers(1 << 30)), device=dev,
-                dtype=CORRIDOR_DTYPE)
+                seed=rseed, device=dev, dtype=CORRIDOR_DTYPE)
+        if record is not None:
+            record.setdefault("chunks", []).append(
+                (np.asarray(cand_s), np.asarray(cand_g), rseed, plans))
 
         keep = [(st, cp) for st, cp in zip(cand_s, plans)
                 if cp.ok and cp.seg >= 1]
@@ -229,23 +237,25 @@ def generate(
     sc = ScenarioBatch(state=state[:count], hpolys=hpolys[:count],
                        times=times[:count], seg=segs[:count])
     with phase("certify"):
-        sc = certify(cfg, sc, device=dev)
+        keep = certified(cfg, sc, device=dev)
+    if record is not None:
+        record.update(batch=sc, flags=keep)
+    sc = ScenarioBatch(*(a[keep] for a in sc))
     if out_path is not None:
         from allocnet_tpu_torch.train import dataset as ds_lib
-        ds_lib.write_h5(out_path, sc)
+        ds_lib.write_scenarios(out_path, sc)
     return sc
 
 
-def certified(cfg: AllocNetConfig, sc: ScenarioBatch,
-              device=None) -> np.ndarray:
-    """(B,) bool: whether each sample's QP solves with its reference times
-    at `config.CERTIFY_SOLVER`, in float32 (the kernel on a card).  The
-    batch is bucketed as the JAX module's (padding repeats sample 0)."""
+def certify_solve(cfg: AllocNetConfig, sc: ScenarioBatch, device=None):
+    """The QP solution behind `certified` (a non-empty batch): each
+    sample's QP with its reference times at `config.CERTIFY_SOLVER`, in
+    float32 (the kernel on a card), the batch bucketed as the JAX
+    module's (padding repeats sample 0; the solution keeps the padded
+    rows)."""
     from allocnet_tpu_torch.planner.sfc import _bucket
 
     B = sc.state.shape[0]
-    if B == 0:
-        return np.zeros((0,), bool)
     dev = resolve_device(device)
     Bp = _bucket(B)
     pad = lambda a: np.concatenate(
@@ -254,8 +264,43 @@ def certified(cfg: AllocNetConfig, sc: ScenarioBatch,
     data = qp.build_qp(cfg.qp, pad(sc.state).astype(f32),
                        pad(sc.hpolys).astype(f32), pad(sc.times).astype(f32),
                        pad(sc.seg), device=dev)
-    sol = admm.solve_qp(data, config_lib.CERTIFY_SOLVER)
-    return sol.solved.cpu().numpy()[:B]
+    return admm.solve_qp(data, config_lib.CERTIFY_SOLVER)
+
+
+def certified(cfg: AllocNetConfig, sc: ScenarioBatch,
+              device=None) -> np.ndarray:
+    """(B,) bool: whether each sample's QP solves with its reference times
+    (`certify_solve`)."""
+    B = sc.state.shape[0]
+    if B == 0:
+        return np.zeros((0,), bool)
+    return certify_solve(cfg, sc, device).solved.cpu().numpy()[:B]
+
+
+def solved_in_f64(cfg: AllocNetConfig, sc: ScenarioBatch, sol,
+                  scfg=None) -> np.ndarray:
+    """(B,) bool: whether the first B rows of a certification solve's
+    solution `sol` (physical coefficients and multipliers, any device)
+    pass the solver's solved test (of `scfg`, CERTIFY_SOLVER by default)
+    when re-evaluated in float64 on the CPU against the QP of the same
+    float32 inputs."""
+    B = sc.state.shape[0]
+    f64 = lambda a: a.astype(np.float32).astype(np.float64)
+    d = qp.build_qp(cfg.qp, f64(sc.state), f64(sc.hpolys), f64(sc.times),
+                    sc.seg, device="cpu")
+    x = qp.scale_coeffs(d, sol.coeffs[:B].cpu().double())
+    nu = sol.nu[:B].cpu().double()
+    lam = qp.tree_flat({k: v[:B].cpu().double() for k, v in sol.lam.items()},
+                       admm.INEQ_KEYS)
+    beq = qp.tree_flat(qp.eq_rhs(d), admm.EQ_KEYS)
+    h = qp.tree_flat(qp.ineq_rhs(d), admm.INEQ_KEYS)
+    pri, dua, pri_sc, dua_sc = admm._full_residuals(d, x, nu, lam, beq, h,
+                                                    with_scales=True)
+    s = config_lib.CERTIFY_SOLVER if scfg is None else scfg
+    obj = qp.objective(d, x)
+    return ((pri < s.eps_abs * 10 + s.eps_rel * 10 * pri_sc)
+            & (dua < s.eps_abs * 10 + s.eps_rel * 10 * dua_sc)
+            & (obj < s.obj_max) & (obj > s.obj_min)).numpy()
 
 
 def certify(cfg: AllocNetConfig, sc: ScenarioBatch,

@@ -1,5 +1,6 @@
-"""HDF5 scenario dataset (the reference's layout), a synthetic generator and
-the shuffled batch loader.
+"""HDF5 scenario dataset (the reference's layout), .npz scenario files (the
+repository's combined corpora), a synthetic generator and the shuffled
+batch loader.
 
 Port of `allocnet_tpu/train/dataset.py`: the same numpy RNG calls, so both
 packages yield the same batches from the same scenarios and seed.  The
@@ -80,6 +81,34 @@ def read_h5_many(paths, cfg: QPConfig,
     parts = [read_h5(p, cfg, seq_len) for p in paths]
     return ScenarioBatch(*[np.concatenate([getattr(p, f) for p in parts])
                            for f in ScenarioBatch._fields])
+
+
+def write_npz(path: str, sc: ScenarioBatch) -> None:
+    """Scenarios as one .npz (state, hpolys, times, seg: the arrays of the
+    repository's combined corpora), written whole or not at all (a
+    temporary file renamed)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **sc._asdict())
+    os.replace(tmp, path)
+
+
+def read_npz(path: str) -> ScenarioBatch:
+    with np.load(path) as z:
+        return ScenarioBatch(*(z[k] for k in ScenarioBatch._fields))
+
+
+def write_scenarios(path: str, sc: ScenarioBatch) -> None:
+    """`write_npz` for a .npz path, else `write_h5` (needs h5py)."""
+    (write_npz if path.endswith(".npz") else write_h5)(path, sc)
+
+
+def read_scenarios(path: str, cfg: QPConfig) -> ScenarioBatch:
+    """`read_npz` for a .npz path, else `read_h5_many` (an .h5 file or a
+    directory of them; needs h5py)."""
+    return read_npz(path) if path.endswith(".npz") else read_h5_many(path,
+                                                                      cfg)
 
 
 def build_synthetic(path: str, cfg: QPConfig, n: int, seed: int = 0) -> None:

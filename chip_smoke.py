@@ -28,7 +28,14 @@ end at DEPLOY: the route-search curve on a cut (map 200 x 3 pairs, arms up
 to 5,000 iterations), all 20 cold plans split into path, corridor and net
 + QP (one traced under torch.profiler) and the 20 pipelined plans, gated
 against the JAX package's CPU run (every cold plan launching both
-kernels; the kernel against its plain version on a cold-plan batch).
+kernels; the kernel against its plain version on a cold-plan batch),
+then train/corpus's scenario-corpus generator: map 9000 asked for 64
+samples through write_shards (run again: nothing generated; combined),
+gated scenario by scenario against the JAX package's CPU run of the same
+request (tests/records/corpus_jax_cpu.json; every difference witnessed
+on the CPU), its corridors against the CPU's, 4 K1 and 48 L1 launches
+per certification, the kernel against its plain version at the
+certification's batch and at the 512 of a full map.
 Then the application layer at
 DEPLOY: generates a certified dataset from a synthetic point cloud (PCD
 write, read and crop; corridors and certification held against the CPU's;
@@ -42,7 +49,8 @@ the kernel against its plain version at the certify shape and at order 3
 (min-jerk).  Then the ten-segment operating point, and last the `ldl`
 phase: ldl_block against its plain version, exactly, on the diagonal
 blocks that the polish factored on the way (deploy solve, cold, warm and
-rescue ticks, held-out eval, refine eval, front end, certify, S=10) and on random
+rescue ticks, held-out eval, refine eval, front end, corpus, certify,
+S=10) and on random
 blocks (B=1024, and B=1025, whose last thread block is short),
 non-finite scenarios kept to themselves, and all kernel launches per
 factorization, solve and tick with the plain version on the card and with
@@ -153,6 +161,15 @@ HELDOUT_WITNESS_BATCHES = 4
 # search), every cold plan and pipelined plan
 FRONTEND_PAIRS = 3
 FRONTEND_MAX_CAP = 5000
+# the corpus generator (train/corpus): write_shards of map 9000 asked for
+# CORPUS_N samples (the JAX CPU record's smoke run), gated per scenario
+# against that record; every candidate corridor against the CPU's, at
+# most CORPUS_CORRIDOR_DIFFS of them apart and each witnessed; K1 at the
+# certification's bucket and at CORPUS_FULL_B, the bucket of a map asked
+# for 400 (the full run's), its batch tiled from the recorded one
+CORPUS_N = 64
+CORPUS_CORRIDOR_DIFFS = 2
+CORPUS_FULL_B = 512
 
 
 # the two kernels' wrappers (set in main): each counts its own launches
@@ -404,27 +421,10 @@ def solved_in_f64(dcfg, batch, sol, scfg=None):
     """(B,) bool: whether a certify solve's solutions `sol` (physical
     coefficients and multipliers, any device) pass the solver's solved
     test (of `scfg`, CERTIFY_SOLVER by default) when re-evaluated in
-    float64 on the CPU against the QP of the same float32 inputs."""
-    import numpy as np
-    from allocnet_tpu_torch import config
-    from allocnet_tpu_torch.ops import admm, qp
-
-    f64 = lambda a: a.astype(np.float32).astype(np.float64)
-    d = qp.build_qp(dcfg.qp, f64(batch.state), f64(batch.hpolys),
-                    f64(batch.times), batch.seg, device="cpu")
-    x = qp.scale_coeffs(d, sol.coeffs.cpu().double())
-    nu = sol.nu.cpu().double()
-    lam = qp.tree_flat({k: v.cpu().double() for k, v in sol.lam.items()},
-                       admm.INEQ_KEYS)
-    beq = qp.tree_flat(qp.eq_rhs(d), admm.EQ_KEYS)
-    h = qp.tree_flat(qp.ineq_rhs(d), admm.INEQ_KEYS)
-    pri, dua, pri_sc, dua_sc = admm._full_residuals(d, x, nu, lam, beq, h,
-                                                    with_scales=True)
-    s = config.CERTIFY_SOLVER if scfg is None else scfg
-    obj = qp.objective(d, x)
-    return ((pri < s.eps_abs * 10 + s.eps_rel * 10 * pri_sc)
-            & (dua < s.eps_abs * 10 + s.eps_rel * 10 * dua_sc)
-            & (obj < s.obj_max) & (obj > s.obj_min)).numpy()
+    float64 on the CPU against the QP of the same float32 inputs
+    (`datagen.solved_in_f64`)."""
+    from allocnet_tpu_torch.train import datagen
+    return datagen.solved_in_f64(dcfg, batch, sol, scfg)
 
 
 def rounding_witness(dcfg, batch, flags_gpu, flags_cpu, dev):
@@ -1038,6 +1038,92 @@ def frontend_phase(dev):
     return k1n, shape, {"total_ms_p50": cp["total_ms_p50"],
                         "net_qp_ms_p50": cp["net_qp_ms_p50"],
                         "trace": tr}
+
+
+def corpus_phase(dev):
+    """train/corpus on the card: `write_shards` of map 9000 asked for
+    CORPUS_N samples into a temporary directory, the same call again (it
+    must generate nothing and keep the total), then `combine` (equal to
+    the shard).  Fails unless the map's certification launched K1
+    CERTIFY_K1 and L1 CERTIFY_L1 times, the per-scenario gates hold
+    against the JAX CPU record's run of the same request
+    (`corpus.scenario_gates`: every difference witnessed on the CPU) and
+    every candidate corridor is within CORRIDOR_TOL of the port's CPU
+    corridor, or, on at most CORPUS_CORRIDOR_DIFFS candidates, witnessed
+    (`corpus.corridors_vs_cpu`).  K1 against its plain version at the
+    certification's bucket and at CORPUS_FULL_B (the batch tiled); the
+    polish blocks recorded for the ldl phase (tag "corpus").  Returns
+    K1's launches on the path and its numbers at both shapes."""
+    import numpy as np
+    from allocnet_tpu_torch.ops import admm_chunk
+    from allocnet_tpu_torch.train import corpus, dataset
+
+    t0 = time.perf_counter()
+    with open(corpus.REFERENCE) as f:
+        ref = json.load(f)
+    seed0, log = corpus.FRESH_SEED0, lambda s: print("  " + s, flush=True)
+    launch, recorded, records = admm_chunk._launch, {}, []
+    with tempfile.TemporaryDirectory() as d:
+        admm_chunk._launch = first_launch_per_batch(launch, recorded)
+        zero_counts()
+        LDL_REC["tag"] = "corpus"
+        try:
+            first = corpus.write_shards(d, CORPUS_N, CORPUS_N, seed0,
+                                        device=dev, max_maps=1,
+                                        records=records, log=log)
+        finally:
+            admm_chunk._launch = launch
+            LDL_REC["tag"] = None
+        k1n = K1.launches
+        l1_ran("corpus")
+        gen_s = time.perf_counter() - t0
+        again = corpus.write_shards(d, CORPUS_N, CORPUS_N, seed0, device=dev,
+                                    max_maps=1, log=log)
+        if again["generated"] or again["total"] != first["total"]:
+            fail(f"write_shards generated {again['generated']} maps again "
+                 f"(total {again['total']}, first {first['total']})")
+        comb = corpus.combine([d], os.path.join(d, "combined.npz"))
+        a = dataset.read_npz(os.path.join(d, f"shard_{seed0}.npz"))
+        b = dataset.read_npz(comb["out"])
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            fail("combine differs from the shard")
+    e = first["maps"][0]
+    print(f"corpus: map {seed0} asked for {CORPUS_N}: {e['candidates']} "
+          f"candidates, {e['to_certify']} to the certification, "
+          f"{e['samples']} certified in {e['map_s']:.3f} s (stages s "
+          + ", ".join(f"{k} {v:.3f}" for k, v in e["stages_s"].items())
+          + f"); resumed with nothing generated; combine {comb['n']} rows; "
+          f"launches K1 {e['k1']}, L1 {e['l1']}", flush=True)
+    checks = corpus.scenario_gates(first["maps"], records, ref, dev, log=log)
+    corpus.launch_gate(checks, first["maps"])
+    cv = corpus.corridors_vs_cpu(records[0], corpus.map_points(seed0)[1])
+    unwitnessed = [k for k, v in cv["differ"].items() if not v]
+    print(f"  corridors of all {cv['candidates']} candidates, card vs CPU: "
+          f"{len(cv['differ'])} apart (moves under the witness "
+          f"{cv['differ']}), the rest within {cv['max']:.3e} of the largest "
+          f"entry; gates: " + json.dumps(checks), flush=True)
+    if "map_9000" not in checks or not all(v["ok"] for v in checks.values()):
+        fail("the corpus generator misses a gate against the JAX CPU record")
+    if len(cv["differ"]) > CORPUS_CORRIDOR_DIFFS or unwitnessed:
+        fail(f"corpus corridors on the card differ from the CPU's: "
+             f"{cv['differ']}")
+    qcfg = corpus.GEN_CFG.qp
+    if len(recorded) != 1:
+        fail(f"admm_chunk ran at batch sizes {sorted(recorded)} in the "
+             f"corpus phase")
+    (bucket, args), = recorded.items()
+    shapes = {"certify": shape_numbers(admm_chunk, qcfg, args,
+                                       "corpus certify")}
+    k = CORPUS_FULL_B // bucket
+    tiled = [t.repeat(k, *[1] * (t.dim() - 1)).contiguous() for t in args[:13]]
+    shapes["full_bucket"] = shape_numbers(
+        admm_chunk, qcfg, tiled + list(args[13:]),
+        f"corpus certify tiled to B={CORPUS_FULL_B}")
+    shapes.update(seconds=gen_s, launches={"k1": e["k1"], "l1": e["l1"]},
+                  corridors=cv, stages_s=e["stages_s"],
+                  certified=e["samples"], candidates=e["candidates"])
+    phase("corpus", t0)
+    return k1n, shapes
 
 
 def application_phases(dev, drv, params, cold_inputs, mission):
@@ -1661,7 +1747,8 @@ def seq10_phase(dev, qp_oracle):
 
 
 LDL_TAGS = ("deploy solve", "cold tick", "warm tick", "rescue tick",
-            "heldout", "refine_eval", "frontend", "certify", "S=10 solve")
+            "heldout", "refine_eval", "frontend", "corpus", "certify",
+            "S=10 solve")
 
 
 def ldl_phase(dev, drv, tick_inputs, data, scfg):
@@ -2445,6 +2532,7 @@ def main():
     heldout_launches, heldout_shapes = heldout_phase(dev)
     refeval_launches, refine_shape, refine_split = refine_eval_phase(dev)
     frontend_launches, frontend_shape, frontend_split = frontend_phase(dev)
+    corpus_launches, corpus_shapes = corpus_phase(dev)
 
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
@@ -2469,6 +2557,7 @@ def main():
             "heldout": heldout_launches,
             "refine_eval": refeval_launches,
             "frontend": frontend_launches,
+            "corpus": corpus_launches,
             **app_launches, **seq10_launches},
         "launches_per_tick": {"cold": launches_per["cold"],
                               "warm": launches_per[0],
@@ -2480,6 +2569,7 @@ def main():
         "refine_eval_split": refine_split,
         "frontend_shape": frontend_shape,
         "frontend_split": frontend_split,
+        "corpus_shapes": corpus_shapes,
         "certify_shape": app_shapes["certify"],
         "jerk_shape": app_shapes["jerk"],
         "seq10_shape": seq10_shape,
