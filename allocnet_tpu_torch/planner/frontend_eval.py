@@ -64,6 +64,7 @@ from allocnet_tpu_torch.ops import admm_chunk, ldl
 from allocnet_tpu_torch.planner import driver as driver_lib
 from allocnet_tpu_torch.planner import planner, sfc
 from allocnet_tpu_torch.planner.drive_eval import NET, ROOT, build_eval_map
+from allocnet_tpu_torch.utils import witness
 from allocnet_tpu_torch.utils.device import device_line, resolve_device
 from allocnet_tpu_torch.utils.timing import PhaseTimer
 
@@ -103,7 +104,7 @@ MAX_FLAG_DIFFS = 1
 CORRIDOR_TOL = 1e-3
 MAX_CORRIDOR_DIFFS = 1
 CORRIDOR_DRAWS = 6
-WITNESS_REL = 1e-6
+WITNESS_REL = witness.REL
 WITNESS_SEED = 7
 # differences of the JAX CPU run (REFERENCE) from the TPU records, each
 # with what is known of it; the record gate demands equality elsewhere
@@ -298,34 +299,19 @@ def _state9(start, goal) -> np.ndarray:
     return st9
 
 
-def corridor_distance(hp, seg, hp_ref, seg_ref):
-    """Largest face-set distance (`sfc.face_set_distance`) between two
-    corridors over the reference's largest entry; None when the segment
-    or face counts differ."""
-    if seg != seg_ref:
-        return None
-    scale = max(1.0, float(np.abs(hp_ref).max()))
-    d = max(sfc.face_set_distance(hp[i], hp_ref[i]) for i in range(seg))
-    return None if np.isinf(d) else d / scale
-
-
 def corridor_moves(pmap, route, k, cfg) -> int:
     """How many of CORRIDOR_DRAWS draws of `route` moved by WITNESS_REL of
     itself (a random sign per entry, seeded by plan k) give a CPU
     corridor (the online front end's) that is not within CORRIDOR_TOL of
-    the CPU corridor of `route` itself."""
-    online = cfg.corridor.online()
-    args = (pmap.surf, pmap.lo, pmap.hi, online, cfg.qp)
-    hp, seg, _, _ = sfc.corridor_online(route, *args, device="cpu")
-    rng = np.random.default_rng(WITNESS_SEED + k)
-    moves = 0
-    for _ in range(CORRIDOR_DRAWS):
-        r = route * (1.0 + WITNESS_REL * rng.choice([-1.0, 1.0],
-                                                    size=route.shape))
-        h2, s2, _, _ = sfc.corridor_online(r, *args, device="cpu")
-        d = corridor_distance(h2, s2, hp, seg)
-        moves += d is None or d > CORRIDOR_TOL
-    return moves
+    the CPU corridor of `route` itself (`witness.corridor_moves`, one
+    round)."""
+    args = (pmap.surf, pmap.lo, pmap.hi, cfg.corridor.online(), cfg.qp)
+    corridors = lambda routes: [
+        (True, *sfc.corridor_online(r, *args, device="cpu")[:2])
+        for r in routes]
+    return witness.corridor_moves(corridors, route, WITNESS_SEED + k,
+                                  CORRIDOR_DRAWS, CORRIDOR_DRAWS,
+                                  CORRIDOR_TOL)
 
 
 def _plan_phases(pmap, start, goal, k, cfg, cold, dev, timer=None):
@@ -425,8 +411,8 @@ def cold_plan(cfg: AllocNetConfig = config.DEPLOY, net=None, params=None,
                 hp_c, seg_c, _, _ = sfc.corridor_online(
                     route, pmap.surf, pmap.lo, pmap.hi, cfg.corridor.online(),
                     cfg.qp, device="cpu")
-                d = plan["corridor_vs_cpu"] = corridor_distance(hp, seg, hp_c,
-                                                                seg_c)
+                d = plan["corridor_vs_cpu"] = witness.corridor_distance(
+                    hp, seg, hp_c, seg_c)
                 if d is None or d > CORRIDOR_TOL:
                     plan["corridor_moves"] = corridor_moves(pmap, route, k,
                                                             cfg)

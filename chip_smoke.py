@@ -163,7 +163,10 @@ FRONTEND_PAIRS = 3
 FRONTEND_MAX_CAP = 5000
 # the corpus generator (train/corpus): write_shards of map 9000 asked for
 # CORPUS_N samples (the JAX CPU record's smoke run), gated per scenario
-# against that record; every candidate corridor against the CPU's, at
+# against that record (the card's draws before the CPU's, which then draw
+# only the rows the card's leave: the phase's CPU cost is bounded by
+# WITNESS_DRAWS draws of those rows and their control); every candidate
+# corridor against the CPU's, at
 # most CORPUS_CORRIDOR_DIFFS of them apart and each witnessed; K1 at the
 # certification's bucket and at CORPUS_FULL_B, the bucket of a map asked
 # for 400 (the full run's), its batch tiled from the recorded one
@@ -430,31 +433,27 @@ def solved_in_f64(dcfg, batch, sol, scfg=None):
 def rounding_witness(dcfg, batch, flags_gpu, flags_cpu, dev):
     """Each sample whose certify flag differs between the card and the CPU,
     and as many where they agree (the control), certified again in
-    WITNESS_DRAWS rows with its times moved by WITNESS_REL of themselves
-    (a random sign per time), on the CPU and on the card in one batch
-    each.  Prints and returns (disagreeing samples, control samples, CPU
-    flips per sample, card flips per sample)."""
+    WITNESS_DRAWS draws with its times moved by WITNESS_REL of themselves
+    (a random sign per time, each sample's from its own seed), on the CPU
+    and on the card (`witness.flag_moves`, one round: a draw flips when
+    its flag differs from the unmoved sample's in the same batch).
+    Prints and returns (disagreeing samples, control samples, CPU flips
+    per sample, card flips per sample)."""
     import numpy as np
     from allocnet_tpu_torch.train import datagen
-    from allocnet_tpu_torch.utils import scenarios
+    from allocnet_tpu_torch.utils import witness
 
     wrng = np.random.default_rng(WITNESS_SEED)
     bad = np.nonzero(flags_gpu != flags_cpu)[0]
     ctrl = np.sort(wrng.choice(np.nonzero(flags_gpu == flags_cpu)[0],
                                len(bad), replace=False))
     idx = np.concatenate([bad, ctrl])
-    rows = np.repeat(idx, WITNESS_DRAWS)
-    signs = wrng.choice([-1.0, 1.0], size=batch.times[rows].shape)
-    wsc = scenarios.ScenarioBatch(
-        state=batch.state[rows], hpolys=batch.hpolys[rows],
-        times=batch.times[rows] * (1.0 + WITNESS_REL * signs),
-        seg=batch.seg[rows])
+    seeds = [(WITNESS_SEED, int(i)) for i in idx]
     flips = {}
-    for side, d, ref in (("CPU", "cpu", flags_cpu),
-                         ("card (not gated)", dev, flags_gpu)):
-        f = datagen.certified(dcfg, wsc, device=d).reshape(
-            len(idx), WITNESS_DRAWS)
-        flips[side] = (f != ref[idx][:, None]).sum(1)
+    for side, d in (("CPU", "cpu"), ("card (not gated)", dev)):
+        flips[side], _ = witness.flag_moves(
+            lambda b: datagen.certified(dcfg, b, device=d), batch, idx,
+            seeds, WITNESS_DRAWS, WITNESS_DRAWS, fields=("times",))
         print(f"  rounding witness on the {side}, {WITNESS_DRAWS} draws of "
               f"the times x (1 +- {WITNESS_REL:g}): flips of each "
               f"disagreeing sample " + ", ".join(
@@ -1047,7 +1046,8 @@ def corpus_phase(dev):
     the shard).  Fails unless the map's certification launched K1
     CERTIFY_K1 and L1 CERTIFY_L1 times, the per-scenario gates hold
     against the JAX CPU record's run of the same request
-    (`corpus.scenario_gates`: every difference witnessed on the CPU) and
+    (`corpus.scenario_gates`: every difference witnessed, the card's
+    draws first) and
     every candidate corridor is within CORRIDOR_TOL of the port's CPU
     corridor, or, on at most CORPUS_CORRIDOR_DIFFS candidates, witnessed
     (`corpus.corridors_vs_cpu`).  K1 against its plain version at the
@@ -1094,14 +1094,19 @@ def corpus_phase(dev):
           + ", ".join(f"{k} {v:.3f}" for k, v in e["stages_s"].items())
           + f"); resumed with nothing generated; combine {comb['n']} rows; "
           f"launches K1 {e['k1']}, L1 {e['l1']}", flush=True)
-    checks = corpus.scenario_gates(first["maps"], records, ref, dev, log=log)
+    t1 = time.perf_counter()
+    checks = corpus.scenario_gates(first["maps"], records, ref, dev, log=log,
+                                   card_first=True)
     corpus.launch_gate(checks, first["maps"])
+    t2 = time.perf_counter()
     cv = corpus.corridors_vs_cpu(records[0], corpus.map_points(seed0)[1])
+    t3 = time.perf_counter()
     unwitnessed = [k for k, v in cv["differ"].items() if not v]
     print(f"  corridors of all {cv['candidates']} candidates, card vs CPU: "
           f"{len(cv['differ'])} apart (moves under the witness "
           f"{cv['differ']}), the rest within {cv['max']:.3e} of the largest "
-          f"entry; gates: " + json.dumps(checks), flush=True)
+          f"entry; host s: gates {t2 - t1:.3f}, CPU corridors {t3 - t2:.3f}; "
+          f"gates: " + json.dumps(checks), flush=True)
     if "map_9000" not in checks or not all(v["ok"] for v in checks.values()):
         fail("the corpus generator misses a gate against the JAX CPU record")
     if len(cv["differ"]) > CORPUS_CORRIDOR_DIFFS or unwitnessed:
@@ -1139,9 +1144,9 @@ def application_phases(dev, drv, params, cold_inputs, mission):
     from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
     from allocnet_tpu_torch.ops import admm, admm_chunk, qp
     from allocnet_tpu_torch.parallel import scaling
-    from allocnet_tpu_torch.planner import driver, planner, replan, sfc
+    from allocnet_tpu_torch.planner import driver, planner, replan
     from allocnet_tpu_torch.train import datagen
-    from allocnet_tpu_torch.utils import pcd, scenarios, timing
+    from allocnet_tpu_torch.utils import pcd, scenarios, timing, witness
 
     k1, launch = admm_chunk.admm_chunk, admm_chunk._launch
     dcfg = config.DEPLOY
@@ -1285,9 +1290,8 @@ def application_phases(dev, drv, params, cold_inputs, mission):
             fail(f"datagen candidate {b}: card corridor ok {g.ok} seg "
                  f"{g.seg}, CPU ok {c.ok} seg {c.seg}")
         if g.ok:
-            scale = max(1.0, float(np.abs(c.hpolys).max()))
-            worst = max(worst, max(sfc.face_set_distance(
-                g.hpolys[i], c.hpolys[i]) for i in range(g.seg)) / scale)
+            d = witness.corridor_distance(g.hpolys, g.seg, c.hpolys, c.seg)
+            worst = max(worst, np.inf if d is None else d)
     print(f"  corridors of the first {n_c} candidates, card vs CPU: same ok "
           f"and seg, faces within {worst:.3e} of the largest entry")
     if worst > CORRIDOR_TOL:

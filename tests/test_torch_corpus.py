@@ -32,6 +32,7 @@ from allocnet_tpu_torch.utils.scenarios import ScenarioBatch
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CACHE = os.path.join(ROOT, "data", "eval_fresh.npz")
 FACE_TOL = 1e-6
 TIME_TOL = 1e-9
 
@@ -288,7 +289,7 @@ def test_record_transcribes_the_logs_and_the_cache(reference):
         os.path.join(ROOT, "runs", "mcnemar", "run_10k.log"))
     assert sum(c for _, c in reference["logs"]["regen_eval"]) == 2000
     assert sum(c for _, c in reference["logs"]["run_10k"]) == 8000
-    with np.load(corpus.CACHE) as z:
+    with np.load(CACHE) as z:
         hist = np.bincount(z["seg"], minlength=6).tolist()
     assert reference["vs_records"]["cache_seg_hist"] == hist
     assert hist[2:] == [615, 1042, 292, 51]
@@ -363,7 +364,7 @@ def test_compare_map_classifies_the_differences():
 
 
 def _outcome_ref():
-    with np.load(corpus.CACHE) as z:
+    with np.load(CACHE) as z:
         hist = np.bincount(z["seg"], minlength=6).tolist()
     return {"logs": {"regen_eval": [[9000 + i, 1] for i in range(11)]},
             "vs_records": {"cache_seg_hist": hist, "seg_hist": hist,
@@ -375,27 +376,46 @@ class _Sol(NamedTuple):
     solved: torch.Tensor
 
 
-def _gate_run(monkeypatch, case):
+def _gate_run(monkeypatch, case, min_rows=1):
     """The checks of a hand-made run, moved past one limit by `case`.  The
-    witnesses' inputs are stubbed: row 1 (certified by the port) passes
-    the float64 test, the CPU drops row 2 too, the corridor of candidate
-    3 moves, no row goes to the draws."""
+    witnesses' inputs are stubbed: every certified row passes the float64
+    test (so row 1, certified by the port only, is witnessed by it), the
+    CPU flag of row 2 (dropped by the port only) moves under the draws,
+    the corridor of candidate 3 moves, no control moves; the cache holds
+    the starts of rows 0 and 1.  Controls of `min_rows` rows or more are
+    gated."""
     rec, ref, entry = _made_map()
-    w = {"f64": True, "cpu_keeps_2": False, "draw": 0, "control": 0,
-         "corridor": 3, "repeat": True}
+    monkeypatch.setattr(corpus, "CONTROL_MIN_ROWS", min_rows)
+    w = {"f64": {0, 1, 3, 4}, "cpu": {2}, "device": None, "ctrl_cpu": 0,
+         "ctrl_device": 0, "corridor": 3, "corridor_ctrl": 0,
+         "repeat": True, "apart": set(), "corridor_row": 0}
     if case == "share":
         monkeypatch.setattr(corpus, "MAX_DIFF_SHARE", 0.5)
         monkeypatch.setattr(corpus, "MAX_DIFF_SLACK", 0)
     elif case == "f64_witness":
-        w["f64"] = False
+        w["f64"] = {0, 3, 4}
     elif case == "drop_witness":
-        w["cpu_keeps_2"] = True
+        w["cpu"] = set()
+    elif case == "drop_witness_on_the_card":
+        w.update(cpu=set(), device=set())
+    elif case == "card_draws":
+        w.update(cpu=set(), device={2})
     elif case == "corridor_witness":
         w["corridor"] = 0
+    elif case == "parted_corridor":
+        w.update(cpu=set(), apart={2}, corridor_row=2)
+    elif case == "parted_corridor_unmoved":
+        w.update(cpu=set(), apart={2})
     elif case == "repeat":
         w["repeat"] = False
     elif case == "control":
-        w.update(f64=False, draw=1, control=1)
+        w["ctrl_cpu"] = 1
+    elif case == "card_control":
+        w.update(cpu=set(), device={2}, ctrl_device=1)
+    elif case == "corridor_control":
+        w["corridor_ctrl"] = 2
+    elif case == "regenerated_f64":
+        w["f64"] = {0, 1, 4}
     elif case == "time_share":
         ref["rows"]["times"][3] = [t * 1.002 for t in ref["rows"]["times"][3]]
     elif case == "mean_time":
@@ -404,23 +424,33 @@ def _gate_run(monkeypatch, case):
     elif case == "launches":
         entry["l1"] = 47
     flags = torch.as_tensor(rec["flags"])
-    monkeypatch.setattr(datagen, "certified", lambda cfg, sc, device=None:
-                        np.array([True, w["cpu_keeps_2"]]))
     monkeypatch.setattr(datagen, "certify_solve", lambda cfg, sc, device=None:
                         _Sol(flags if w["repeat"] else ~flags))
+    # the rows the float64 test is given are the certified ones, in order
+    certified = np.nonzero(rec["flags"])[0]
     monkeypatch.setattr(datagen, "solved_in_f64", lambda cfg, sc, sol:
-                        np.array([w["f64"], False]))
+                        np.isin(certified, list(w["f64"])))
 
-    def certify_moves(batch, idx, rng, cfg=None):
-        n = len(idx)
-        pending = n // 2 if w["control"] else n
-        mv = np.array([w["draw"]] * pending + [w["control"]] * (n - pending),
-                      int)
-        return np.ones(n, bool), mv, np.full(n, 8)
+    def draws(batch, rows, pool, seed, tag, device):
+        on_card = torch.device(device).type == "cuda"
+        moving = w["device"] if on_card else w["cpu"]
+        n_ctrl = min(len(rows), len(pool))
+        ctrl = w["ctrl_device"] if on_card else w["ctrl_cpu"]
+        return ({int(i): int(i in moving) for i in rows},
+                {int(i): 8 for i in rows}, [min(ctrl, n_ctrl), n_ctrl])
 
-    monkeypatch.setattr(corpus, "certify_moves", certify_moves)
-    monkeypatch.setattr(corpus, "corridor_moves",
-                        lambda *a, **k: w["corridor"])
+    if w["device"] is not None:
+        monkeypatch.setattr(corpus, "resolve_device",
+                            lambda d=None: torch.device("cuda"))
+    monkeypatch.setattr(corpus, "_draws", draws)
+    monkeypatch.setattr(corpus, "corridor_moves", lambda *a, **k: {
+        3: w["corridor"], 2: w["corridor_row"]}.get(a[-1][2],
+                                                    w["corridor_ctrl"]))
+    # the CPU corridor of candidate c (route seed 100 + c) parts from the
+    # run's (no faces) when c is in w["apart"]
+    S, F = corpus.GEN_CFG.qp.max_seg, corpus.GEN_CFG.qp.max_faces
+    monkeypatch.setattr(corpus, "cpu_corridor", lambda pm, s, g, rs: (
+        True, np.full((S, F, 4), float(rs - 100 in w["apart"])), 2))
     full = {"full": {"maps": [ref]}, "smoke": {"maps": []}}
     checks = corpus.scenario_gates([entry], [rec], full, "cpu",
                                    log=lambda s: None)
@@ -438,20 +468,99 @@ def _gate_run(monkeypatch, case):
         oref["vs_records"]["per_map"][0]["jax_cpu"] = 2
     corpus.outcome_gates(checks, ScenarioBatch(None, None, None, seg), maps,
                          oref)
-    held = {a: {"diff": 0.01} for a in ("big3", "finetune", "big4")}
+    from allocnet_tpu_torch.train import heldout_eval
+    b = rec["batch"]
+    monkeypatch.setattr(heldout_eval, "load_scenarios", lambda n=None:
+                        ScenarioBatch(*(a[:2] for a in b)))
+    corpus.f64_gate(checks, ScenarioBatch(*(a[certified] for a in b)),
+                    [rec], "cpu")
+    held = {a: {"diff": corpus.HELDOUT_SHIFT[a] + 0.01}
+            for a in corpus.HELDOUT_SHIFT}
     if case == "heldout":
-        held["big4"]["diff"] = -0.031
+        held["big4"]["diff"] = corpus.HELDOUT_SHIFT["big4"] - 0.031
     corpus.heldout_gate(checks, held)
     return checks
 
 
 GATE_CASES = {"share": "map_9000", "f64_witness": "map_9000",
-              "drop_witness": "map_9000", "corridor_witness": "map_9000",
+              "drop_witness": "map_9000",
+              "drop_witness_on_the_card": "map_9000",
+              "corridor_witness": "map_9000",
+              "parted_corridor_unmoved": "map_9000",
               "repeat": "map_9000", "control": "witness_control",
+              "card_control": "witness_control",
+              "corridor_control": "witness_control",
+              "regenerated_f64": "regenerated_only_in_f64",
               "time_share": "times", "mean_time": "times",
               "launches": "launches_per_certify", "seg_shares": "seg_shares",
               "maps": "maps", "records": "reference_vs_records",
               "heldout": "heldout"}
+
+
+def test_witness_draws_are_per_row():
+    """A row's draws come from its own seed: its moves are the same with
+    or without other rows in the witness, and the rounds double."""
+    from allocnet_tpu_torch.utils import witness
+    from allocnet_tpu_torch.utils.scenarios import random_scenarios
+    assert list(witness.rounds(8, 256)) == [8, 8, 16, 32, 64, 128]
+    assert list(witness.rounds(8, 20)) == [8, 8, 4]
+    sc = random_scenarios(corpus.GEN_CFG.qp, 3, seed=11, min_seg=1)
+    seeds = [(7, 9000, i) for i in range(3)]
+    flags_of = lambda b: datagen.certified(corpus.GEN_CFG, b, device="cpu")
+    alone, d1 = witness.flag_moves(flags_of, sc, [2], seeds[2:], 4, 8)
+    together, d3 = witness.flag_moves(flags_of, sc, [0, 1, 2], seeds, 4, 8)
+    assert alone[0] == together[2] and d1[0] == d3[2]
+
+
+def test_witness_holds_a_draw_against_its_own_batch():
+    """A flag that depends on the batch it is computed in (here: on the
+    batch's size) does not move under the draws: each draw is held
+    against the unmoved row in the same batch."""
+    from allocnet_tpu_torch.utils import witness
+    from allocnet_tpu_torch.utils.scenarios import random_scenarios
+    sc = random_scenarios(corpus.GEN_CFG.qp, 2, seed=3, min_seg=1)
+    by_size = lambda b: np.full(len(b.seg), len(b.seg) > 4)
+    moves, draws = witness.flag_moves(by_size, sc, [0, 1], [1, 2], 2, 16)
+    assert moves.tolist() == [0, 0] and draws.tolist() == [16, 16]
+    half = lambda b: b.times[:, 0] > sc.times[0, 0]
+    moves, _ = witness.flag_moves(half, sc, [0], [0], 8, 8)
+    assert 0 < moves[0] < 8
+
+
+@pytest.mark.parametrize("a, b, apart", [
+    ((False, None, 6), (False, None, 6), False),
+    ((False, None, 6), (False, None, 7), True),
+    ((True, np.ones((5, 50, 4)), 2), (False, None, 2), True),
+    ((True, np.ones((5, 50, 4)), 2), (True, np.ones((5, 50, 4)) + 2e-3, 2),
+     True),
+    ((True, np.ones((5, 50, 4)), 2), (True, np.ones((5, 50, 4)) + 5e-4, 2),
+     False)])
+def test_corridors_apart(a, b, apart):
+    """Two corridors that both fail are apart only by their polytope
+    count; two that hold, by faces beyond the tolerance."""
+    from allocnet_tpu_torch.utils import witness
+    assert witness.corridors_apart(a, b, 1e-3) == apart
+
+
+@pytest.mark.parametrize("case", ["card_draws", "parted_corridor"])
+def test_card_draws_witness_a_dropped_row(monkeypatch, case):
+    """A row the card drops and the CPU keeps in every draw is witnessed
+    when the card's own flag moves under the draws there, or when the
+    run's corridor of its candidate parts from the CPU's and the CPU's
+    moves under draws of the route."""
+    checks = _gate_run(monkeypatch, case)
+    assert all(v["ok"] for v in checks.values()), checks
+
+
+@pytest.mark.parametrize("case", ["control", "card_control",
+                                  "corridor_control"])
+def test_a_small_control_is_not_gated(monkeypatch, case):
+    """A control of fewer than CONTROL_MIN_ROWS rows (here one row, moved)
+    is reported, not gated: its share says nothing."""
+    checks = _gate_run(monkeypatch, case, min_rows=3)
+    assert all(v["ok"] for v in checks.values()), checks
+    c = checks["witness_control"]
+    assert sum(c[k]["moved"] for k in ("cpu", "device", "corridor")) >= 1
 
 
 @pytest.mark.parametrize("case", sorted(GATE_CASES))
