@@ -288,9 +288,14 @@ def admm_chunk_reference(x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals,
     operands and rounded back (in f32 it carries most of a chunk's roundoff
     error).  `sum_dtype=torch.float32` takes that product in f32 instead,
     as the TPU kernel does (for accuracy studies); f64 inputs run the whole
-    chunk in f64.  Returns new (x, z, yh, yeh)."""
+    chunk in f64.  A scenario with an Aeq block index out of [0, S*3) has
+    that index taken as 0 and all its outputs NaN, the others computed as
+    without it, as the kernel does.  Returns new (x, z, yh, yeh)."""
     B, n, S, R, F, D, m = _dims(x, z, yeh, normals)
-    aeq = aeq_dense(aeq_val, aeq_blk, n)
+    oob = (aeq_blk < 0) | (aeq_blk >= n // D)
+    aeq = aeq_dense(aeq_val, aeq_blk.masked_fill(oob, 0), n)
+    nan_or_0 = torch.where(oob.flatten(1).any(1), float("nan"), 0.0).to(
+        x.dtype)
     B0, B1, B2 = basis
     sm = seg_mask[:, :, None, None]
     ri, re = rho_i[:, None, None], rho_e[:, None]
@@ -324,7 +329,9 @@ def admm_chunk_reference(x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals,
         z = torch.minimum(v, hh)
         yh = torch.clamp(v - z, -yci[..., None], yci[..., None])
         yeh = torch.clamp(yeh + alpha * (veq - beq), -yce, yce)
-    return x, z.reshape(B, S * R, -1), yh.reshape(B, S * R, -1), yeh
+    bad = nan_or_0[:, None]
+    return (x + bad, z.reshape(B, S * R, -1) + bad[..., None],
+            yh.reshape(B, S * R, -1) + bad[..., None], yeh + bad)
 
 
 def live_parts(x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals, h,

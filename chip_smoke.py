@@ -35,7 +35,12 @@ gated scenario by scenario against the JAX package's CPU run of the same
 request (tests/records/corpus_jax_cpu.json; every difference witnessed
 on the CPU), its corridors against the CPU's, 4 K1 and 48 L1 launches
 per certification, the kernel against its plain version at the
-certification's batch and at the 512 of a full map.
+certification's batch and at the 512 of a full map, then
+train/mcnemar10k's paired eval on a cut (the first 240 held-out
+scenarios and 32 fresh ones of map 12000: batches of 256 and 16, the full
+run's tail shape): the McNemar table's keys, 6 K1 and 32 L1 launches per
+arm, the cache rows' flags against the held-out phase's (each difference
+witnessed), both kernels against their plain versions at B=16.
 Then the application layer at
 DEPLOY: generates a certified dataset from a synthetic point cloud (PCD
 write, read and crop; corridors and certification held against the CPU's;
@@ -49,8 +54,8 @@ the kernel against its plain version at the certify shape and at order 3
 (min-jerk).  Then the ten-segment operating point, and last the `ldl`
 phase: ldl_block against its plain version, exactly, on the diagonal
 blocks that the polish factored on the way (deploy solve, cold, warm and
-rescue ticks, held-out eval, refine eval, front end, corpus, certify,
-S=10) and on random
+rescue ticks, held-out eval, refine eval, front end, corpus, mcnemar10k
+at B=16, certify, S=10) and on random
 blocks (B=1024, and B=1025, whose last thread block is short),
 non-finite scenarios kept to themselves, and all kernel launches per
 factorization, solve and tick with the plain version on the card and with
@@ -173,6 +178,14 @@ FRONTEND_MAX_CAP = 5000
 CORPUS_N = 64
 CORPUS_CORRIDOR_DIFFS = 2
 CORPUS_FULL_B = 512
+# the 10,000-scenario McNemar eval (train/mcnemar10k) cut to the first
+# MCN_BASE held-out scenarios and the first MCN_FRESH certified rows of
+# map 12000 asked for MCN_ASK (fresh_scenarios): one batch of 256 and one
+# of MCN_TAIL_B, the full run's last batch
+MCN_BASE = 240
+MCN_ASK = 64
+MCN_FRESH = 32
+MCN_TAIL_B = 16
 
 
 # the two kernels' wrappers (set in main): each counts its own launches
@@ -180,7 +193,7 @@ K1 = L1 = None
 # L1's launches on each path of the run, and the polish blocks captured for
 # the ldl phase (`record_ldl`)
 LDL_LAUNCHES = {}
-LDL_REC = {"tag": None, "blocks": {}, "factor": {}}
+LDL_REC = {"tag": None, "batch": None, "blocks": {}, "factor": {}}
 LDL_REPS = 20
 LDL_TAIL_B = 1025        # a batch whose last thread block is short
 
@@ -287,7 +300,8 @@ def ldl_compare(got, want, reg, what):
 def record_ldl(ldl, L1):
     """Wraps `ldl.ldl_factor` so that the first factorization under each
     tag (LDL_REC['tag']; 'fly' tags by batch: cold B=3, warm B=1, rescue
-    B=4) keeps its K, signs and the diagonal blocks that reach L1."""
+    B=4; of LDL_REC['batch'] scenarios only when that is set) keeps its K,
+    signs and the diagonal blocks that reach L1."""
     factor = ldl.ldl_factor
 
     def recording_factor(K, **kw):
@@ -295,7 +309,8 @@ def record_ldl(ldl, L1):
         if tag == "fly":
             tag = {3: "cold tick", 1: "warm tick", 4: "rescue tick"}.get(
                 K.shape[0])
-        if tag is None or tag in LDL_REC["blocks"]:
+        if (tag is None or tag in LDL_REC["blocks"]
+                or LDL_REC["batch"] not in (None, K.shape[0])):
             return factor(K, **kw)
         blocks = LDL_REC["blocks"][tag] = []
         LDL_REC["factor"][tag] = (K.clone(), kw["sign"].clone(), kw["reg"])
@@ -841,7 +856,7 @@ def heldout_phase(dev):
         if 2 * int((cm > 0).sum()) > len(ctrl):
             fail("the held-out rounding witness moves most of the control")
     phase("heldout", t0)
-    return k1n, shapes
+    return k1n, shapes, per
 
 
 def refine_eval_launches(cfg, steps):
@@ -1129,6 +1144,98 @@ def corpus_phase(dev):
                   certified=e["samples"], candidates=e["candidates"])
     phase("corpus", t0)
     return k1n, shapes
+
+
+def mcnemar10k_phase(dev, heldout_flags):
+    """train/mcnemar10k on a cut: the first MCN_BASE scenarios of the
+    held-out cache, then the first MCN_FRESH certified rows of map 12000
+    asked for MCN_ASK (`corpus.fresh_scenarios`, the full run's first
+    map), the three arms over them (`mcnemar10k.evaluate_arms`: one batch
+    of 256 and one of MCN_TAIL_B).  Fails unless the table has the
+    script's keys, each arm launched K1 n_chunks and L1
+    mcnemar10k.L1_PER_BATCH times per batch, and the cache rows' flags
+    equal the held-out phase's (`heldout_flags`) or, where they differ,
+    move under `mcnemar10k.cache_row_gate`'s witness on the card (gate
+    c: every cache row here shares its batch with fresh rows).  K1
+    against its plain version at B=MCN_TAIL_B; the first polish
+    factorization at that batch recorded for the ldl phase (tag
+    "mcnemar10k B=16").  Returns K1's launches on the path and its
+    numbers at that shape."""
+    import numpy as np
+    from allocnet_tpu_torch.ops import admm_chunk
+    from allocnet_tpu_torch.train import corpus, heldout_eval, mcnemar10k
+
+    t0 = time.perf_counter()
+    log = lambda s: print("  " + s, flush=True)
+    fresh, entries = corpus.fresh_scenarios(
+        MCN_ASK, mcnemar10k.SEED0, max_maps=1, device=dev, log=log)
+    if len(fresh.seg) < MCN_FRESH:
+        fail(f"map {mcnemar10k.SEED0} certified {len(fresh.seg)} of "
+             f"{MCN_ASK}, fewer than {MCN_FRESH}")
+    sc = mcnemar10k.join(heldout_eval.load_scenarios(MCN_BASE),
+                         type(fresh)(*(a[:MCN_FRESH] for a in fresh)))
+    gen_s = time.perf_counter() - t0
+    launch, recorded = admm_chunk._launch, {}
+    admm_chunk._launch = first_launch_per_batch(launch, recorded)
+    zero_counts()
+    LDL_REC["tag"], LDL_REC["batch"] = "mcnemar10k B=16", MCN_TAIL_B
+    try:
+        out, per = mcnemar10k.evaluate_arms(sc, dev, log=log)
+    finally:
+        admm_chunk._launch = launch
+        LDL_REC["tag"], LDL_REC["batch"] = None, None
+    k1n = K1.launches
+    l1_ran("mcnemar10k")
+    eval_s = time.perf_counter() - t0 - gen_s
+    pairs = [f"{x}_vs_{y}" for x, y in heldout_eval.PAIRS]
+    keys = ("b_only_first", "c_only_second", "p_two_sided", "delta")
+    for k in heldout_eval.FLAGS:
+        if (list(out[f"mcnemar_{k}"]) != pairs or any(
+                tuple(v) != keys for v in out[f"mcnemar_{k}"].values())):
+            fail(f"the mcnemar10k table mcnemar_{k} has keys "
+                 f"{json.dumps(out[f'mcnemar_{k}'])}")
+    n_chunks = heldout_eval.EVAL_CFG.solver.n_chunks
+    want = {"admm_chunk": 2 * n_chunks,
+            "ldl_block": 2 * mcnemar10k.L1_PER_BATCH}
+    for arm, rep in out["arms"].items():
+        tm = out["timing"][arm]
+        print(f"mcnemar10k {arm}: success {rep['success_rate']:.4f}, "
+              f"certified of solved {rep['certified_of_solved']:.4f}; "
+              f"{tm['wall_s']:.2f} s, ms per batch "
+              + " ".join(f"{v:.1f}" for v in tm["batch_ms"])
+              + f"; launches {out['launches'][arm]}", flush=True)
+        if out["launches"][arm] != want:
+            fail(f"mcnemar10k {arm} launched {out['launches'][arm]}, "
+                 f"not {want}")
+    print("  McNemar (solved): " + json.dumps(out["mcnemar_solved"]),
+          flush=True)
+    checks = {}
+    ref = {a: {k: np.asarray(heldout_flags[f"{a}_{k}"][:MCN_BASE], bool)
+               for k in heldout_eval.FLAGS} for a in out["arms"]}
+    t1 = time.perf_counter()
+    rows = mcnemar10k.cache_row_gate(checks, per, ref, sc, MCN_BASE, dev,
+                                     log)
+    print(f"  cache rows 0-{MCN_BASE - 1} against the heldout phase "
+          f"({time.perf_counter() - t1:.2f} s): "
+          + json.dumps(checks["cache_rows"]), flush=True)
+    if not checks["cache_rows"]["ok"]:
+        fail("mcnemar10k's cache rows part from the held-out eval's "
+             "without a witness")
+    if sorted(recorded) != [MCN_TAIL_B, heldout_eval.BATCH]:
+        fail(f"admm_chunk ran at batch sizes {sorted(recorded)} in the "
+             f"mcnemar10k phase")
+    shape = shape_numbers(admm_chunk, heldout_eval.EVAL_CFG.qp,
+                          recorded[MCN_TAIL_B],
+                          f"mcnemar10k B={MCN_TAIL_B}")
+    shape.update(generate_s=gen_s, eval_s=eval_s,
+                 generated=entries[0]["certified"],
+                 generation_launches={"k1": entries[0]["k1"],
+                                      "l1": entries[0]["l1"]},
+                 launches=out["launches"],
+                 cache_rows={a: {k: v["differ"] for k, v in r.items()}
+                             for a, r in rows.items()})
+    phase("mcnemar10k", t0)
+    return k1n, shape
 
 
 def application_phases(dev, drv, params, cold_inputs, mission):
@@ -1751,8 +1858,8 @@ def seq10_phase(dev, qp_oracle):
 
 
 LDL_TAGS = ("deploy solve", "cold tick", "warm tick", "rescue tick",
-            "heldout", "refine_eval", "frontend", "corpus", "certify",
-            "S=10 solve")
+            "heldout", "refine_eval", "frontend", "corpus",
+            "mcnemar10k B=16", "certify", "S=10 solve")
 
 
 def ldl_phase(dev, drv, tick_inputs, data, scfg):
@@ -2533,10 +2640,11 @@ def main():
                                            recorded[batch], batch)
     phase("fly", t0)
     drive_launches = drive_eval_phase(dev)
-    heldout_launches, heldout_shapes = heldout_phase(dev)
+    heldout_launches, heldout_shapes, heldout_flags = heldout_phase(dev)
     refeval_launches, refine_shape, refine_split = refine_eval_phase(dev)
     frontend_launches, frontend_shape, frontend_split = frontend_phase(dev)
     corpus_launches, corpus_shapes = corpus_phase(dev)
+    mcn_launches, mcn_shape = mcnemar10k_phase(dev, heldout_flags)
 
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
@@ -2562,6 +2670,7 @@ def main():
             "refine_eval": refeval_launches,
             "frontend": frontend_launches,
             "corpus": corpus_launches,
+            "mcnemar10k": mcn_launches,
             **app_launches, **seq10_launches},
         "launches_per_tick": {"cold": launches_per["cold"],
                               "warm": launches_per[0],
@@ -2574,6 +2683,7 @@ def main():
         "frontend_shape": frontend_shape,
         "frontend_split": frontend_split,
         "corpus_shapes": corpus_shapes,
+        "mcnemar10k_shape": mcn_shape,
         "certify_shape": app_shapes["certify"],
         "jerk_shape": app_shapes["jerk"],
         "seq10_shape": seq10_shape,

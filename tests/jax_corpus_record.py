@@ -15,6 +15,13 @@ count, the reference times and whether the row certified.  Two runs:
   the rest follow one at a time, each asked what the loop would ask it.
 - `smoke`: fresh_scenarios(64, seed0=9000), the cut of chip_smoke.py.
 
+- `mcnemar10k`: the first MCN_MAPS maps of fresh_scenarios(8000,
+  seed0=12000), scripts/mcnemar10k.py's call, each asked for 400 (so
+  independent while got <= 7,600: one process each), and map 12000
+  asked for 16; written to MCN_RECORD in RECORD's layout ("full" holds
+  those maps only), beside the per-map counts of
+  runs/mcnemar/run_10k.log.
+
 RECORD keeps outcomes only, no faces and no times of this host.  It also
 holds the per-map certified counts of runs/regen_eval.log (the TPU run of
 `full`) and of runs/mcnemar/run_10k.log (fresh_scenarios(8000,
@@ -23,10 +30,13 @@ and this run against them (`vs_records`).
 
     JAX_PLATFORMS=cpu python -m tests.jax_corpus_record [--work DIR]
         [--procs 6]
-    JAX_PLATFORMS=cpu python -m tests.jax_corpus_record map SEED N OUT.npz
+    JAX_PLATFORMS=cpu python -m tests.jax_corpus_record map SEED N OUT.json
         [--all]
+    JAX_PLATFORMS=cpu python -m tests.jax_corpus_record mcnemar10k
+        [--work DIR]
 
-About 25 minutes on 8 cores (6 map processes, then 5 maps in turn).
+About 25 minutes on 8 cores (6 map processes, then 5 maps in turn);
+`mcnemar10k` about 25 minutes (7 map processes).
 """
 
 import argparse
@@ -45,6 +55,8 @@ CACHE = os.path.join(ROOT, "data", "eval_fresh.npz")
 REGEN_LOG = os.path.join(ROOT, "runs", "regen_eval.log")
 RUN10K_LOG = os.path.join(ROOT, "runs", "mcnemar", "run_10k.log")
 FULL_N, SMOKE_N, SEED0, PER_MAP, MAX_MAPS = 2000, 64, 9000, 400, 40
+MCN_RECORD = os.path.join(ROOT, "tests", "records", "mcnemar10k_jax_cpu.json")
+MCN_N, MCN_SMOKE_N, MCN_SEED0, MCN_MAPS = 8000, 16, 12000, 6
 
 
 class _FirstMapDone(Exception):
@@ -224,6 +236,46 @@ def vs_records(maps):
     return out
 
 
+def mcnemar10k_run(work, out):
+    """The first MCN_MAPS maps of fresh_scenarios(MCN_N, MCN_SEED0), each
+    asked for PER_MAP (the loop asks that of every map while got <= MCN_N
+    - PER_MAP: checked below), and map MCN_SEED0 asked for MCN_SMOKE_N,
+    one process each, into MCN_RECORD."""
+    os.makedirs(work, exist_ok=True)
+    path = lambda m, n: os.path.join(work, f"map_{m}_{n}.json")
+    todo = [(MCN_SEED0 + i, PER_MAP) for i in range(MCN_MAPS)]
+    todo.append((MCN_SEED0, MCN_SMOKE_N))
+    with open(os.path.join(work, "log.txt"), "a") as log:
+        jobs = [_spawn([str(m), str(n), path(m, n)], log) for m, n in todo
+                if not os.path.exists(path(m, n))]
+        for j in jobs:
+            if j.wait():
+                raise SystemExit(f"a map process failed: {j.args}")
+    maps, got = [], 0
+    for m, n in todo[:-1]:
+        assert min(PER_MAP, MCN_N - got) == n
+        (rec,) = _read(path(m, n))
+        maps.append(rec)
+        got += rec["certified"]
+    logged = log_counts(RUN10K_LOG)
+    import jax
+    rec = {"source": "tests/jax_corpus_record.py mcnemar10k",
+           "script": "scripts/eval_big.py fresh_scenarios, as "
+                     "scripts/mcnemar10k.py calls it",
+           "jax": jax.__version__, "dtype": "float32",
+           "full": {"n": MCN_N, "seed0": MCN_SEED0, "maps": maps,
+                    "note": f"the first {MCN_MAPS} maps only"},
+           "smoke": {"n": MCN_SMOKE_N, "seed0": MCN_SEED0,
+                     "maps": _read(path(MCN_SEED0, MCN_SMOKE_N))},
+           "logs": {"run_10k": logged},
+           "vs_records": {"per_map": [
+               {"seed": s_, "log": c, "jax_cpu": m["certified"]}
+               for (s_, c), m in zip(logged, maps)]}}
+    with open(out, "w") as f:
+        json.dump(rec, f, separators=(",", ":"))
+    print(json.dumps(rec["vs_records"]))
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "map":
@@ -235,6 +287,13 @@ def main(argv=None):
                         help="every map of the loop, not only the first")
         a = ap.parse_args(argv[1:])
         return worker(a.seed, a.n, a.out, a.all)
+    if argv and argv[0] == "mcnemar10k":
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--work", default=os.path.join(ROOT, "chiprun_out",
+                                                       "mcnemar10k_jax"))
+        ap.add_argument("--out", default=MCN_RECORD)
+        a = ap.parse_args(argv[1:])
+        return mcnemar10k_run(a.work, a.out)
     ap = argparse.ArgumentParser()
     ap.add_argument("--work", default=os.path.join(ROOT, "chiprun_out",
                                                    "corpus_jax"))

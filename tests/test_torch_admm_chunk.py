@@ -250,6 +250,33 @@ def test_wrapper_rejects_bad_input(case):
         admm_chunk.admm_chunk(*args, 3, SIGMA, ALPHA)
 
 
+@pytest.mark.parametrize("bad", [99, -1])
+def test_chunk_reference_bad_block_index_gives_nan(bad):
+    """An Aeq block index out of [0, S*3): the plain version, as the kernel
+    does (tests/test_torch_gpu_kernel.py), writes NaN to every output of
+    that scenario and computes the others to their values without it; the
+    wrapper on CPU tensors takes the plain version, so it does the same."""
+    cfg, scfg = QPConfig(res=10), SolverConfig()
+    sc = scenarios.random_scenarios(cfg, 4, seed=3, min_seg=1)
+    f32 = np.float32
+    data = qp.build_qp(cfg, sc.state.astype(f32), sc.hpolys.astype(f32),
+                       sc.times.astype(f32), sc.seg, device="cpu")
+    _, z, _ = admm.warm_start(data)
+    g = torch.Generator().manual_seed(3)
+    y = {k: torch.randn(v.shape, generator=g) for k, v in z.items()}
+    args = list(admm_chunk.chunk_inputs(data, scfg, None, y))
+    run = lambda f: f(*args, 5, scfg.sigma, scfg.alpha)
+    want = run(admm_chunk.admm_chunk_reference)
+    args[6] = args[6].clone()
+    args[6][1, 5, 1] = bad
+    for got in (run(admm_chunk.admm_chunk_reference),
+                run(admm_chunk.admm_chunk)):
+        for g, w in zip(got, want):
+            assert bool(torch.isnan(g[1]).all())
+            assert bool(torch.isfinite(w).all())
+            assert torch.equal(g[[0, 2, 3]], w[[0, 2, 3]])
+
+
 def test_wrapper_zero_state_stays_zero():
     out = admm_chunk.admm_chunk(*_valid_args(), 3, SIGMA, ALPHA)
     for t in out:

@@ -376,14 +376,14 @@ class _Sol(NamedTuple):
     solved: torch.Tensor
 
 
-def _gate_run(monkeypatch, case, min_rows=1):
+def _gate_run(monkeypatch, case, min_rows=1, explained=None):
     """The checks of a hand-made run, moved past one limit by `case`.  The
     witnesses' inputs are stubbed: every certified row passes the float64
     test (so row 1, certified by the port only, is witnessed by it), the
     CPU flag of row 2 (dropped by the port only) moves under the draws,
     the corridor of candidate 3 moves, no control moves; the cache holds
     the starts of rows 0 and 1.  Controls of `min_rows` rows or more are
-    gated."""
+    gated; `explained`, when given, stands for corpus.UNWITNESSED."""
     rec, ref, entry = _made_map()
     monkeypatch.setattr(corpus, "CONTROL_MIN_ROWS", min_rows)
     w = {"f64": {0, 1, 3, 4}, "cpu": {2}, "device": None, "ctrl_cpu": 0,
@@ -452,6 +452,8 @@ def _gate_run(monkeypatch, case, min_rows=1):
     monkeypatch.setattr(corpus, "cpu_corridor", lambda pm, s, g, rs: (
         True, np.full((S, F, 4), float(rs - 100 in w["apart"])), 2))
     full = {"full": {"maps": [ref]}, "smoke": {"maps": []}}
+    if explained is not None:
+        monkeypatch.setattr(corpus, "UNWITNESSED", explained)
     checks = corpus.scenario_gates([entry], [rec], full, "cpu",
                                    log=lambda s: None)
     corpus.launch_gate(checks, [entry])
@@ -571,6 +573,27 @@ def test_gates_fail_past_their_limits(monkeypatch, case):
     moved = _gate_run(monkeypatch, case)
     failed = {k for k, v in moved.items() if not v["ok"]}
     assert failed == {GATE_CASES[case]}, moved
+
+
+@pytest.mark.parametrize("case, kind, i", [("drop_witness", "row", 2),
+                                           ("corridor_witness", "candidate",
+                                            3)])
+def test_a_recorded_difference_passes_only_itself(monkeypatch, case, kind,
+                                                  i):
+    """A difference no witness covers passes its map where UNWITNESSED
+    lists it by seed, request, kind and index, and stays among the map's
+    unwitnessed; listed under another index, kind or request it fails."""
+    checks = _gate_run(monkeypatch, case,
+                       explained={(9000, 5, kind, i): "evidence"})
+    assert all(v["ok"] for v in checks.values()), checks
+    assert checks["map_9000"]["explained"] == {f"{kind} {i}": "evidence"}
+    assert i in checks["map_9000"]["unwitnessed"]
+    other = "row" if kind == "candidate" else "candidate"
+    for key in ((9000, 5, kind, i + 1), (9000, 6, kind, i),
+                (9000, 5, other, i)):
+        checks = _gate_run(monkeypatch, case, explained={key: "evidence"})
+        assert {k for k, v in checks.items() if not v["ok"]} == \
+            {"map_9000"}, (key, checks)
 
 
 def test_explained_covers_the_record(reference):
