@@ -67,6 +67,7 @@ def cmd_train(args):
     from allocnet_tpu_torch.models.networks import ConvLSTMAllocNet
     from allocnet_tpu_torch.parallel import mesh as mesh_lib
     from allocnet_tpu_torch.train import dataset as ds_lib
+    from allocnet_tpu_torch.train import train_step as ts_lib
     from allocnet_tpu_torch.train import trainer as trainer_lib
 
     mesh_lib.initialize_distributed()       # under torchrun: one per card
@@ -75,9 +76,9 @@ def cmd_train(args):
         batch_size=args.batch_size, max_epochs=args.epochs))
     sc = ds_lib.read_scenarios(args.dataset, cfg.qp)
     loader = ds_lib.Loader(sc, batch_size=cfg.train.batch_size)
-    net = ConvLSTMAllocNet(seq_len=cfg.model.seq_len,
-                           hidden_size=args.hidden,
-                           token_thresh=cfg.model.token_thresh)
+    net = ts_lib.init_params(ConvLSTMAllocNet(
+        seq_len=cfg.model.seq_len, hidden_size=args.hidden,
+        token_thresh=cfg.model.token_thresh), cfg.train.seed)
     tr = trainer_lib.Trainer(cfg, net, loader, args.workdir,
                              device=args.device)
     tr.train()

@@ -454,6 +454,17 @@ def unflatten_duals(data: QPData, y_flat: torch.Tensor) -> dict:
     return out
 
 
+def solve_launches(qcfg, scfg: SolverConfig) -> tuple[int, int]:
+    """(K1, L1) launches of one `solve_qp` on a card: n_chunks admm_chunk
+    launches and, per polish round, 1 + polish_drop_passes factorizations
+    of the padded KKT (n_var + n_eq + max_active rows, in 64-column
+    blocks), one ldl_block launch per block.  A differentiable solve's
+    backward launches neither."""
+    blocks = -(-(qcfg.n_var + qcfg.n_eq + scfg.max_active) // 64)
+    return (scfg.n_chunks,
+            scfg.polish_rounds * (1 + scfg.polish_drop_passes) * blocks)
+
+
 def solve_qp(data: QPData, scfg: SolverConfig, x0=None, y0=None) -> QPSolution:
     """Full batched solve: ADMM, polish, status.  x0/y0: warm start.
 

@@ -184,11 +184,15 @@ def gates(arms: dict, results: dict, record, n: int) -> dict:
             "passed": passed}
 
 
-def eval_arm(run_dir: str, sc: ScenarioBatch, device=None):
-    """One arm over `sc`: (EvalReport, per-scenario extras, timing,
-    launches).  On the card both kernels must launch."""
+def eval_arm(run_dir: str, sc: ScenarioBatch, device=None,
+             thresh: float | None = None):
+    """One arm over `sc` (at `thresh`, else its calibrated threshold):
+    (EvalReport, per-scenario extras, timing, launches).  On the card both
+    kernels must launch."""
     dev = resolve_device(device)
     net = load_arm(run_dir, dev)
+    if thresh is not None:
+        net.token_thresh = thresh
     cfg = arm_config(net.token_thresh)
     k1, l1 = admm_chunk.admm_chunk, ldl.ldl_block
     n0, m0 = k1.launches, l1.launches

@@ -22,6 +22,49 @@ from allocnet_tpu_torch.ops import qp_diff
 from allocnet_tpu_torch.train import losses as losses_lib
 
 TIME_MIN = 0.05   # floor of the active times the QP sees
+# std of a unit normal truncated at +-2: flax's variance_scaling divides
+# by it so that the truncated draw has the variance asked for
+TRUNC_STD = 0.87962566103423978
+
+
+def _trunc_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
+    """float64 draws of N(0, std^2) truncated at +-2 std, on the CPU, by
+    the inverse CDF of uniforms in [Phi(-2), Phi(2)] (as
+    jax.random.truncated_normal draws them)."""
+    lo, hi = (0.5 * (1.0 + math.erf(v / math.sqrt(2.0))) for v in (-2.0, 2.0))
+    u = lo + (hi - lo) * torch.rand(shape, generator=gen, dtype=torch.float64)
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+    return std * z.clamp(-2.0, 2.0)
+
+
+@torch.no_grad()
+def init_params(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """The JAX package's initialization (`init_state`'s `net.init`,
+    models/networks.py) of a ConvLSTMAllocNet or ConvMLPAllocNet, in
+    place, from a torch.Generator seeded with `seed` (TrainConfig.seed):
+    every weight of a Linear, Conv and the LSTM from a normal truncated at
+    +-2 sigma with sigma = sqrt(2 / fan_in) / TRUNC_STD (flax's
+    variance_scaling(2.0, "fan_in", "truncated_normal")), fan_in taken in
+    torch layout (in for a Linear or an LSTM matrix, in x kernel for a
+    conv); every bias 0, LayerNorm scales 1, the ConvMLP's last bias 1.0.
+    The draws are not JAX's: the same distribution, another stream.
+    Returns `net`."""
+    from allocnet_tpu_torch.models.networks import ConvMLPAllocNet
+
+    gen = torch.Generator().manual_seed(int(seed))
+    for module in net.modules():
+        for name, p in module.named_parameters(recurse=False):
+            if isinstance(module, torch.nn.LayerNorm):
+                p.fill_(1.0 if name == "weight" else 0.0)
+            elif name.startswith("bias"):
+                p.zero_()
+            else:
+                fan_in = p[0].numel()
+                p.copy_(_trunc_normal(p.shape, math.sqrt(2.0 / fan_in)
+                                      / TRUNC_STD, gen))
+    if isinstance(net, ConvMLPAllocNet):
+        net.output_module[8].bias.fill_(1.0)
+    return net
 
 
 def cosine_warm_restarts(lr: float, t0: int, t_mult: int, eta_min: float,

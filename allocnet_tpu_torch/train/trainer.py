@@ -4,8 +4,10 @@ Port of `allocnet_tpu/train/trainer.py` (the reference's
 MinSnapNetworkTrainingManager, train_minsnap_conv_lstm.py:24-332), on one
 device.  Differences from the JAX module:
 
-  * the Trainer takes a built nn.Module with its weights; it does not
-    initialize parameters from a seed the way the JAX `init_state` does;
+  * the Trainer takes a built nn.Module with its weights; a run from
+    scratch initializes them first with `train_step.init_params(net,
+    cfg.train.seed)`, the counterpart of the JAX `init_state`'s
+    `net.init` (the same distributions, another random stream);
   * checkpoints are `torch.save` files `checkpoint{step}.pt` holding the
     model, optimizer and scheduler state dicts, the step and the epoch,
     not the JAX module's flax msgpack pytrees; the two formats do not read
@@ -111,6 +113,7 @@ class Trainer:
         self.opt, self.lr_sched = ts_lib.make_optimizer(self.net, cfg.train)
         self.step = 0
         self.start_epoch = 0
+        self.steps_s: list = []      # host s of each epoch's steps
         ck = latest_checkpoint(self.ckpt_dir)
         if ck is not None:
             self.step, self.start_epoch = restore_checkpoint(
@@ -188,6 +191,9 @@ class Trainer:
                 if len(pending) >= self.log_every:
                     self._flush_steps(pending)
             self._flush_steps(pending)
+            # the epoch's training steps, up to their last metrics read
+            # back (a wait for the device); not written to the metrics
+            self.steps_s.append(time.time() - t0)
             # validation (reference: train_minsnap_conv.py:287-332)
             with torch.no_grad():
                 val = [ts_lib.loss_fn(self.net, c.qp, c.solver, c.loss,

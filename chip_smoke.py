@@ -40,7 +40,13 @@ train/mcnemar10k's paired eval on a cut (the first 240 held-out
 scenarios and 32 fresh ones of map 12000: batches of 256 and 16, the full
 run's tail shape): the McNemar table's keys, 6 K1 and 32 L1 launches per
 arm, the cache rows' flags against the held-out phase's (each difference
-witnessed), both kernels against their plain versions at B=16.
+witnessed), both kernels against their plain versions at B=16,
+then train/chain's stages on a cut: map 1000's certified rows refined as
+one chunk of 128, two training steps of 128 each of train_big (from the
+JAX init) and finetune_qp (from runs/big3), each with its held-out eval,
+and calibrate_thresh at two thresholds on 32 rows (exact launch counts
+per chunk, step and batch; the kernel against its plain version at the
+training step's B=128 x 100).
 Then the application layer at
 DEPLOY: generates a certified dataset from a synthetic point cloud (PCD
 write, read and crop; corridors and certification held against the CPU's;
@@ -84,10 +90,15 @@ import sys
 import tempfile
 import time
 
+# the kernels against their plain versions, their times and bounds
+from allocnet_tpu_torch.utils.kernel_bench import (
+    CHUNK_TOL, PEAK_BYTES, PEAK_F32_FLOPS, chunk_work, cuda_ms,
+    first_launch_per_batch, ldl_compare, ldl_work,
+    shape_numbers)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 1024                  # the deploy batch (bench.py)
 SEED = 123                # bench.py's scenario seed
-CHUNK_TOL = 5e-4          # kernel vs plain, of each array's largest entry
 ORACLE_N = 8
 REQUESTS = 3              # plan_batch requests served on the main path
 TRAIN_N = 320             # scenarios of the train phase: 9 steps of 32, 1 val
@@ -104,10 +115,6 @@ N_MISSIONS = 2
 MAX_TICKS = 200
 ARRIVE_DIST = 0.3         # drive_eval's arrival: done and within 0.3 m
 CORRIDOR_TOL = 1e-3       # card vs CPU corridor, of the largest row entry
-# H100 SXM published peaks (NVIDIA data sheet): f32 on the CUDA cores and
-# HBM3 bandwidth, for the kernel's bound
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # application phases: a 40 x 40 x 4 m cloud of four random_obstacle_map
 # tiles, cropped to 20 x 20 x 4 m; the CLI's default sample count
 DATAGEN_SEED = 100
@@ -186,6 +193,16 @@ MCN_BASE = 240
 MCN_ASK = 64
 MCN_FRESH = 32
 MCN_TAIL_B = 16
+# the chain phase: map 1000 (the corpus prefix's first), one refine chunk,
+# CHAIN_STEPS training steps of 128 over the certified rows tiled to
+# CHAIN_ROWS (the Loader's 0.9 split leaves CHAIN_VAL validation rows)
+CHAIN_MAP = 1000
+CHAIN_ASK = 200
+CHAIN_REFINE_B = 128
+CHAIN_ROWS = 320
+CHAIN_STEPS = 2
+CHAIN_VAL = 32
+CHAIN_GRID = (0.42, 0.5)
 
 
 # the two kernels' wrappers (set in main): each counts its own launches
@@ -221,82 +238,6 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, reps, warmup=1):
-    """Mean milliseconds per call on the card (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def chunk_work(cfg, n_iters, aeq, normals, seg_mask):
-    """(FLOP, bytes) that one admm_chunk launch must do on this run's
-    inputs.  Operations count what the data needs: 2 FLOP per multiply-add
-    of the products over active segments only (padded segments' variables
-    stay exactly zero: the normal matrix is block-diagonal between active
-    and padded segments), the nonzeros of Aeq, the active corridor faces,
-    and ~16 FLOP per active inequality slot per iteration (relaxation,
-    projection, dual update, the z - yh difference).  Bytes: every input
-    read once and every output written once, f32, as passed (dense)."""
-    S, R, F, D = cfg.max_seg, cfg.res, cfg.max_faces, cfg.D
-    n, m, NR, C = cfg.n_var, cfg.n_eq, S * R, F + 12
-    batch = aeq.shape[0]
-    segs = seg_mask.double().sum(1)
-    n_act = 3 * D * segs
-    faces = (normals.abs().sum(-1) > 0).double().sum((1, 2))
-    nnz = (aeq != 0).double().sum((1, 2))
-    macs = (n_act ** 2 + 2 * nnz + 2 * faces * R * 3
-            + 2 * segs * R * 9 * D)
-    slots = faces * R + segs * R * 12
-    flops = n_iters * float((2 * macs + 16 * slots + 3 * n_act + 4 * m).sum())
-    floats_in = (n * n + m * n + m + S * F * 3 + S * C + S + 2   # per scenario
-                 + n + 2 * NR * C + m)                            # state in
-    floats_out = n + 2 * NR * C + m
-    nbytes = 4 * (batch * (floats_in + floats_out) + 3 * R * D)
-    return flops, nbytes
-
-
-def ldl_work(B, NB):
-    """(operations, bytes) of one ldl_block launch on B blocks of NB
-    columns.  Per block: two products and a difference for each entry of
-    the lower triangle that a column's update touches (sum over j of
-    (NB - j)(NB - j - 1) / 2) and one divide for each entry of L below the
-    diagonal; the work does not depend on the data (no column ends early).
-    Bytes: K read once and L written once (B NB^2 f32 each), d written
-    once, the signs read once."""
-    upd = sum((NB - j) * (NB - j - 1) // 2 for j in range(NB))
-    return B * (3 * upd + NB * (NB - 1) // 2), 4 * (2 * B * NB * NB + B * NB
-                                                    + NB)
-
-
-def ldl_compare(got, want, reg, what):
-    """L1's (L, d) against the plain version's on the finite scenarios of
-    the reference: (equal, equal bit patterns, max abs diff, bumped pivots
-    in the reference).  Fails unless they are equal (torch.equal: a zero
-    may differ in sign only, which the bit patterns show)."""
-    import torch
-    (L, d), (rL, rd) = got, want
-    fin = torch.isfinite(rL).flatten(1).all(1) & torch.isfinite(rd).all(1)
-    L, d, rL, rd = L[fin], d[fin], rL[fin], rd[fin]
-    same = torch.equal(L, rL) and torch.equal(d, rd)
-    bits = (torch.equal(L.view(torch.int32), rL.view(torch.int32))
-            and torch.equal(d.view(torch.int32), rd.view(torch.int32)))
-    bumped = int((rd.abs() < reg).sum())
-    absd = 0.0 if not fin.any() else max(float((L - rL).abs().max()),
-                                         float((d - rd).abs().max()))
-    if not same:
-        fail(f"ldl_block differs from its plain version on the {what} "
-             f"blocks: max abs diff {absd:.3e}")
-    return same, bits, absd, bumped
-
-
 def record_ldl(ldl, L1):
     """Wraps `ldl.ldl_factor` so that the first factorization under each
     tag (LDL_REC['tag']; 'fly' tags by batch: cold B=3, warm B=1, rescue
@@ -326,60 +267,6 @@ def record_ldl(ldl, L1):
             ldl.ldl_block = L1
 
     ldl.ldl_factor = recording_factor
-
-
-def first_launch_per_batch(launch, recorded):
-    """admm_chunk._launch that keeps, in `recorded` by batch size, the
-    first arguments (the kernel's tensors, n_iters, sigma, alpha) of each
-    batch size it launches."""
-    import torch
-
-    def rec_launch(lib, *a):
-        if int(a[0].shape[0]) not in recorded:
-            recorded[int(a[0].shape[0])] = [
-                t.clone() if torch.is_tensor(t) else t for t in a[:17]]
-        return launch(lib, *a)
-    return rec_launch
-
-
-def kernel_check(k1, ref, a, what):
-    """The kernel against its plain version on the recorded arguments `a`
-    (the kernel's tensors, n_iters, sigma, alpha): returns each output's
-    max difference over the plain version's largest entry; fails on a
-    non-finite output or above CHUNK_TOL."""
-    import torch
-    got = k1(*a)
-    torch.cuda.synchronize()
-    want = ref(*a)
-    errs = []
-    for name, g, w in zip(("x", "z", "yh", "yeh"), got, want):
-        if not bool(torch.isfinite(g).all()):
-            fail(f"kernel {name} not finite on the {what} batch")
-        errs.append(float((g - w).abs().max())
-                    / max(1.0, float(w.abs().max())))
-    if max(errs) > CHUNK_TOL:
-        fail(f"admm_chunk disagrees with its plain version on the {what} "
-             f"batch: {max(errs):.3e} of the largest entry")
-    return errs
-
-
-def shape_numbers(admm_chunk, qcfg, a, what, reps=20):
-    """Kernel vs plain (`kernel_check`), then the kernel's and the plain
-    version's ms per launch and the bound (`chunk_work`) on the recorded
-    arguments `a`."""
-    k1, ref = admm_chunk.admm_chunk, admm_chunk.admm_chunk_reference
-    errs = kernel_check(k1, ref, a, what)
-    ms = cuda_ms(lambda: k1(*a), reps=reps)
-    pms = cuda_ms(lambda: ref(*a), reps=3)
-    fl, nb = chunk_work(qcfg, a[14], admm_chunk.aeq_dense(
-        a[5], a[6], qcfg.n_var), a[8], a[10])
-    bms = max(fl / PEAK_F32_FLOPS, nb / PEAK_BYTES) * 1e3
-    print(f"  admm_chunk on the {what} batch (B={a[0].shape[0]}, {a[14]} "
-          f"iterations, D={qcfg.D}): kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-          f"bound {bms:.5f} ms ({fl:.3e} FLOP, {nb:.3e} B); max diff / "
-          f"max|plain| of x z yh yeh " + " ".join(f"{e:.3e}" for e in errs))
-    return {"B": int(a[0].shape[0]), "iters": int(a[14]), "ms": ms,
-            "plain_ms": pms, "bound_ms": bms, "max_rel_err": max(errs)}
 
 
 def first_tick(npz, cache_dir, aot_dir=None):
@@ -863,16 +750,11 @@ def refine_eval_launches(cfg, steps):
     """(K1, L1) launches one chunk of planner/refine_eval must make: ten
     solves (the one at the net's times and the one at the refined times,
     and in refine.refine_times the differentiable solve at the start, the
-    forward solve at the raw input and one per step), each n_chunks K1
-    launches and, per polish round, 1 + polish_drop_passes factorizations
-    of the padded KKT (n_var + n_eq + max_active rows, in 64-column
-    blocks), one L1 launch per block; the backward's LU launches
-    neither."""
-    q, s = cfg.qp, cfg.solver
-    solves = 2 + 2 + steps
-    blocks = -(-(q.n_var + q.n_eq + s.max_active) // 64)
-    return (solves * s.n_chunks,
-            solves * s.polish_rounds * (1 + s.polish_drop_passes) * blocks)
+    forward solve at the raw input and one per step), each
+    `admm.solve_launches`."""
+    from allocnet_tpu_torch.ops import admm
+    return tuple((4 + steps) * n for n in admm.solve_launches(cfg.qp,
+                                                               cfg.solver))
 
 
 def refine_eval_phase(dev):
@@ -1235,6 +1117,138 @@ def mcnemar10k_phase(dev, heldout_flags):
                  cache_rows={a: {k: v["differ"] for k, v in r.items()}
                              for a, r in rows.items()})
     phase("mcnemar10k", t0)
+    return k1n, shape
+
+
+def chain_phase(dev):
+    """The training chain (train/chain's stages) on a cut: map CHAIN_MAP
+    asked for CHAIN_ASK, its first CHAIN_REFINE_B certified rows refined
+    as one chunk (`refine_targets.refine_corpus` at --chunk
+    CHAIN_REFINE_B), the certified rows tiled to CHAIN_ROWS (a Loader
+    split of CHAIN_STEPS steps of 128 and CHAIN_VAL validation rows),
+    `train_big.train` big3 for one epoch from the JAX init and
+    `finetune_qp.finetune` for one epoch from runs/big3, each ending in
+    its eval over the 2,000 held-out scenarios, and
+    `calibrate_thresh.calibrate` of runs/big3 at CHAIN_GRID on the
+    CHAIN_VAL validation rows.  Fails unless every stage launched K1 and
+    L1 exactly as its code gives (`refine_targets.chunk_launches`,
+    `chain.train_launches`, `admm.solve_launches`), the
+    losses are finite and the refinement contract holds.  K1 against its
+    plain version at the training step's B=128 x 100 (res 10); the first
+    polish factorization at B=128 recorded for the ldl phase (tag "chain
+    B=128").  Returns K1's launches on the path and its numbers at that
+    shape."""
+    import numpy as np
+    from allocnet_tpu_torch.ops import admm, admm_chunk
+    from allocnet_tpu_torch.train import (calibrate_thresh, chain, corpus,
+                                          dataset, finetune_qp,
+                                          refine_targets, train_big)
+    from allocnet_tpu_torch.utils.scenarios import ScenarioBatch
+
+    t0 = time.perf_counter()
+    log = lambda s: print("  " + s, flush=True)
+    sc, e = corpus.generate_map(CHAIN_MAP, CHAIN_ASK, device=dev)
+    if len(sc.seg) < CHAIN_REFINE_B:
+        fail(f"map {CHAIN_MAP} certified {len(sc.seg)} of {CHAIN_ASK}, "
+             f"fewer than {CHAIN_REFINE_B}")
+    reps = -(-CHAIN_ROWS // len(sc.seg))
+    rows = ScenarioBatch(*(np.concatenate([a] * reps)[:CHAIN_ROWS]
+                           for a in sc))
+    launch, recorded = admm_chunk._launch, {}
+    got = {}
+    with tempfile.TemporaryDirectory() as d:
+        src, data = os.path.join(d, "refine_in.npz"), os.path.join(
+            d, "corpus.npz")
+        dataset.write_npz(src, ScenarioBatch(*(a[:CHAIN_REFINE_B]
+                                               for a in sc)))
+        dataset.write_npz(data, rows)
+        out = os.path.join(d, "refined.npz")
+        zero_counts()
+        got["refine"] = refine_targets.refine_corpus(
+            src, out, CHAIN_REFINE_B, device=dev, log=log)
+        got["refine_launches"] = (K1.launches, L1.launches)
+        inp = refine_targets.read_corpus(src)
+        asm = refine_targets.assemble(inp, out, CHAIN_REFINE_B,
+                                      refine_targets.STEPS)
+        checks = {}
+        chain.contract_gate(checks, inp, asm["times"], asm["improved"],
+                            asm["obj0"], asm["obj"])
+        admm_chunk._launch = first_launch_per_batch(launch, recorded)
+        LDL_REC["tag"], LDL_REC["batch"] = "chain B=128", 128
+        try:
+            got["train"] = train_big.train(
+                "big3", data, os.path.join(d, "big3"), 1, 0, "jax", dev,
+                log=log)
+        finally:
+            admm_chunk._launch = launch
+            LDL_REC["tag"], LDL_REC["batch"] = None, None
+        got["finetune"] = finetune_qp.finetune(
+            data, finetune_qp.START, os.path.join(d, "finetune"), 1, dev,
+            log=log)
+        got["calibrate"] = calibrate_thresh.calibrate(
+            os.path.join(ROOT, "runs", "big3"), data, CHAIN_VAL,
+            os.path.join(d, "calibrate"), dev, log=log, grid=CHAIN_GRID)
+    k1n = K1.launches
+    l1_ran("chain")
+    print(f"chain: map {CHAIN_MAP}: {len(sc.seg)} certified of {CHAIN_ASK} "
+          f"in {e['map_s']:.2f} s; refinement of {CHAIN_REFINE_B} rows "
+          f"as one chunk: {json.dumps(got['refine']['stats'])}, "
+          f"{got['refine']['chunks'][0]['ms']:.1f} ms, launches "
+          f"{got['refine_launches']}; contract "
+          + json.dumps(checks["refine_contract"]), flush=True)
+    if not checks["refine_contract"]["ok"]:
+        fail("the refinement breaks its contract")
+    want = refine_targets.chunk_launches()
+    if tuple(got["refine_launches"]) != want:
+        fail(f"the refine chunk launched {got['refine_launches']}, not "
+             f"{want}")
+    for name in ("train", "finetune"):
+        r = got[name]
+        steps = r["metrics"]
+        tw, ew = chain.train_launches(r)
+        print(f"  {name}: {len(steps)} steps, ms per step "
+              f"{r['train']['ms_per_step']:.1f}; losses "
+              + ", ".join(f"{s['obj']:.3f}" for s in steps)
+              + f"; launches {r['train']['k1']} / {r['train']['l1']} "
+              f"(expected {tw}); eval_fresh success "
+              f"{r['eval_fresh']['success_rate']:.4f}, launches "
+              f"{r['eval']['k1']} / {r['eval']['l1']} (expected {ew})",
+              flush=True)
+        if len(steps) != CHAIN_STEPS or not all(
+                np.isfinite(s["obj"]) for s in steps):
+            fail(f"chain {name} ran {len(steps)} steps or a non-finite loss")
+        if ((r["train"]["k1"], r["train"]["l1"]) != tw
+                or (r["eval"]["k1"], r["eval"]["l1"]) != ew):
+            fail(f"chain {name} launched other counts than its code gives")
+    c = got["calibrate"]
+    bk, bl = admm.solve_launches(calibrate_thresh.CFG.qp,
+                                 calibrate_thresh.CFG.solver)
+    tms = c["timing"]["grid"] + [c["timing"]["eval_fresh"]]
+    cal = (sum(t["k1"] for t in tms), sum(t["l1"] for t in tms))
+    nb = sum(t["batches"] for t in tms)
+    print(f"  calibration of runs/big3 on {c['calibration']['val_n']} rows: "
+          + json.dumps([[r["token_thresh"], r["stop_token_accuracy"],
+                         r["success_rate"]] for r in c["calibration"]
+                        ["grid"]])
+          + f"; best {c['calibration']['best_thresh']}; eval_fresh "
+          f"success {c['eval_fresh_calibrated']['success_rate']:.4f}; "
+          f"launches {cal} (expected {(nb * bk, nb * bl)})", flush=True)
+    if len(c["calibration"]["grid"]) != len(CHAIN_GRID) or cal != (
+            nb * bk, nb * bl):
+        fail("the chain's calibration ran another grid or launch count")
+    if 128 not in recorded:
+        fail(f"admm_chunk ran at batch sizes {sorted(recorded)} in the "
+             f"chain's training")
+    shape = shape_numbers(admm_chunk, train_big.CFG.qp, recorded[128],
+                          "chain train B=128")
+    shape.update(launches={
+        "refine_chunk": list(got["refine_launches"]),
+        **{n: [got[n]["train"]["k1"], got[n]["train"]["l1"]]
+           for n in ("train", "finetune")}, "calibrate": list(cal)},
+        ms_per_step={n: got[n]["train"]["ms_per_step"]
+                     for n in ("train", "finetune")},
+        refine_chunk_ms=got["refine"]["chunks"][0]["ms"])
+    phase("chain", t0)
     return k1n, shape
 
 
@@ -1859,7 +1873,7 @@ def seq10_phase(dev, qp_oracle):
 
 LDL_TAGS = ("deploy solve", "cold tick", "warm tick", "rescue tick",
             "heldout", "refine_eval", "frontend", "corpus",
-            "mcnemar10k B=16", "certify", "S=10 solve")
+            "mcnemar10k B=16", "chain B=128", "certify", "S=10 solve")
 
 
 def ldl_phase(dev, drv, tick_inputs, data, scfg):
@@ -2645,6 +2659,7 @@ def main():
     frontend_launches, frontend_shape, frontend_split = frontend_phase(dev)
     corpus_launches, corpus_shapes = corpus_phase(dev)
     mcn_launches, mcn_shape = mcnemar10k_phase(dev, heldout_flags)
+    chain_launches, chain_shape = chain_phase(dev)
 
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
@@ -2671,6 +2686,7 @@ def main():
             "frontend": frontend_launches,
             "corpus": corpus_launches,
             "mcnemar10k": mcn_launches,
+            "chain": chain_launches,
             **app_launches, **seq10_launches},
         "launches_per_tick": {"cold": launches_per["cold"],
                               "warm": launches_per[0],
@@ -2684,6 +2700,7 @@ def main():
         "frontend_split": frontend_split,
         "corpus_shapes": corpus_shapes,
         "mcnemar10k_shape": mcn_shape,
+        "chain_shape": chain_shape,
         "certify_shape": app_shapes["certify"],
         "jerk_shape": app_shapes["jerk"],
         "seq10_shape": seq10_shape,
