@@ -1,14 +1,18 @@
 """allocnet_tpu_torch command line: plan on a map, generate datasets,
 train, evaluate, export.  The port's counterpart of scripts/allocnet.py
 (same subcommands and arguments), plus --device: every subcommand runs on
-the card unless it says otherwise.  --checkpoint takes a TorchScript .pt
-(the reference's shipped format, or what `export` writes) or a flax
-.msgpack (data/params/*.msgpack).
+the card unless it says otherwise; `ablation` runs train/ablation.py's
+arms (QP-gradient against supervised training) with that module's
+arguments.  --checkpoint takes a TorchScript .pt (the reference's shipped
+format, or what `export` writes) or a flax .msgpack
+(data/params/*.msgpack).
 
 Usage:
   python -m allocnet_tpu_torch.cli datagen --out data/dataset.npz --n 512
   python -m allocnet_tpu_torch.cli train --dataset data/dataset.npz \\
       --workdir runs/e0
+  python -m allocnet_tpu_torch.cli ablation --arm mlp_qp_grad \\
+      --arm mlp_supervised
   python -m allocnet_tpu_torch.cli eval --dataset data/dataset.npz \\
       --checkpoint data/params/seq5_tokenthresh0_35.msgpack
   python -m allocnet_tpu_torch.cli plan --pcd map.pcd --start 1 1 1.5 \\
@@ -83,6 +87,14 @@ def cmd_train(args):
                              device=args.device)
     tr.train()
     print(json.dumps({"workdir": args.workdir, "steps": tr.step}))
+
+
+def cmd_ablation(args):
+    from allocnet_tpu_torch.train import ablation
+
+    code = ablation.execute(args.arm, args.pair, args.out, args.device)
+    if code:
+        raise SystemExit(code)
 
 
 def cmd_eval(args):
@@ -164,6 +176,12 @@ def main(argv=None):
     t.add_argument("--epochs", type=int, default=50)
     t.add_argument("--hidden", type=int, default=256)
     t.set_defaults(fn=cmd_train)
+
+    ab = sub.add_parser("ablation", help="the paper's ablation (train/"
+                                         "ablation.py)")
+    from allocnet_tpu_torch.train import ablation
+    ablation.add_arguments(ab)
+    ab.set_defaults(fn=cmd_ablation)
 
     e = sub.add_parser("eval")
     e.add_argument("--dataset", required=True)

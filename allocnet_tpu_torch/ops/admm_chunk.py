@@ -310,13 +310,15 @@ def admm_chunk_reference(x, z, yh, yeh, kx, aeq_val, aeq_blk, beq, normals,
         gt = (torch.einsum('rd,bsrj->bsjd', B0, pos_w)
               + torch.einsum('rd,bsrj->bsjd', B1, ub[..., 0] - ub[..., 2])
               + torch.einsum('rd,bsrj->bsjd', B2, ub[..., 1] - ub[..., 3]))
-        eq = torch.einsum('bmn,bm->bn', aeq, beq - yeh)
+        # the three matrix-vector products are elementwise products and
+        # sums: a batched one picks its kernel, and with it a scenario's
+        # summation order, by the batch size
+        eq = (aeq * (beq - yeh)[:, :, None]).sum(1)
         rrow = sigma * x + re * eq + ri[:, :, 0] * gt.reshape(B, n)
         # Kx rrow: f32 operands, products and sum in f64, as the kernel
-        xt = torch.clamp(torch.einsum('bnm,bm->bn', kx.to(sum_dtype),
-                                      rrow.to(sum_dtype)).to(x.dtype),
-                         -1e6, 1e6)
-        veq = torch.einsum('bmn,bn->bm', aeq, xt)
+        xt = torch.clamp((kx.to(sum_dtype) * rrow.to(sum_dtype)[:, None, :])
+                         .sum(-1).to(x.dtype), -1e6, 1e6)
+        veq = (aeq * xt[:, None, :]).sum(-1)
         xs = xt.view(B, S, 3, D)
         pos = torch.einsum('rd,bsjd->bsrj', B0, xs)
         vel = torch.einsum('rd,bsjd->bsrj', B1, xs) * sm

@@ -19,6 +19,7 @@ iterations, with the script's keys.
 
 Beyond the script the result carries the host s of each epoch's steps,
 ms per step and K1 / L1 launches of the training and of the eval.
+`run` is the same run at any cfg and net (train/ablation.py's arms).
 
     python -m allocnet_tpu_torch.train.train_big --arm big3|big4
         [--data CORPUS.npz] [--out WORKDIR] [--epochs E] [--seed S]
@@ -117,40 +118,43 @@ def run_trainer(tr, epochs, log) -> dict:
     return out
 
 
-def train(arm: str, data: str | None = None, workdir: str | None = None,
-          epochs: int | None = None, seed: int = 0, init: str = "jax",
-          device=None, eval_path: str = EVAL, log=print) -> dict:
-    """The script's main for `arm`.  Returns {"dataset", "train" (steps,
-    seconds, launches), "metrics" (the step records), "eval_fresh" (the
-    script's JSON), "eval_flags", "eval" (wall, launches), "workdir"}."""
+def lstm_net(cfg: AllocNetConfig) -> torch.nn.Module:
+    """The scripts' net: a ConvLSTM at the cfg's model widths."""
+    return ConvLSTMAllocNet(seq_len=cfg.model.seq_len,
+                            hidden_size=cfg.model.hidden_size,
+                            token_thresh=cfg.model.token_thresh)
+
+
+def run(cfg: AllocNetConfig, make_net, data: str, workdir: str, name: str,
+        ds: dict, epochs: int | None = None, seed: int = 0,
+        init: str = "jax", device=None, eval_path: str = EVAL,
+        log=print) -> dict:
+    """A run from scratch at `cfg`: `make_net(cfg)` initialized by
+    `init_params(net, seed)` (or PyTorch's own with init="default"), the
+    port's Trainer over `Loader(seed=0)` on the corpus `data` in
+    `workdir` (resuming from its latest checkpoint), then the closing eval
+    over `eval_path`.  `ds` goes to `dataset.json`, `name` into the eval's
+    JSON as its arm.  Returns {"dataset", "train" (steps, seconds, launches),
+    "metrics" (the step records), "eval_fresh" (the script's JSON),
+    "eval_flags", "eval" (wall, launches), "workdir"}."""
     dev = resolve_device(device)
-    spec = ARMS[arm]
-    data = data or spec["data"]
-    workdir = workdir or os.path.join(OUT_DIR, arm)
     os.makedirs(workdir, exist_ok=True)
     sc = dataset.read_npz(data)
-    n = int(len(sc.seg))
-    log(f"dataset: {n} samples, seg dist {corpus.seg_hist(sc.seg)}")
-    ds = ({"n": n, "seg_hist": corpus.seg_hist(sc.seg),
-           "sources": [os.path.relpath(data, ROOT)]} if arm == "big3" else
-          {"n": n, "source": os.path.relpath(data, ROOT),
-           "targets": "refined (train/refine_targets.py)"})
+    log(f"dataset: {len(sc.seg)} samples, seg dist {corpus.seg_hist(sc.seg)}")
     with open(os.path.join(workdir, "dataset.json"), "w") as f:
         json.dump(ds, f)
-    cfg = dataclasses.replace(CFG, train=dataclasses.replace(CFG.train,
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
                                                              seed=seed))
     loader = dataset.Loader(sc, batch_size=cfg.train.batch_size, seed=0)
     torch.manual_seed(seed)
-    net = ConvLSTMAllocNet(seq_len=cfg.model.seq_len,
-                           hidden_size=cfg.model.hidden_size,
-                           token_thresh=cfg.model.token_thresh)
+    net = make_net(cfg)
     if init == "jax":
         ts_lib.init_params(net, cfg.train.seed)
     tr = trainer_lib.Trainer(cfg, net, loader, workdir, device=dev)
     log(f"training from epoch {tr.start_epoch}")
     summary = run_trainer(tr, epochs, log)
     rep, ex, ev = eval_fresh(tr.net, cfg, dev, eval_path)
-    out = dict(rep._asdict(), arm=spec["arm"], step=int(tr.step))
+    out = dict(rep._asdict(), arm=name, step=int(tr.step))
     with open(os.path.join(workdir, "eval_fresh.json"), "w") as f:
         json.dump(out, f, indent=1)
     log(json.dumps(out))
@@ -158,6 +162,22 @@ def train(arm: str, data: str | None = None, workdir: str | None = None,
             "metrics": [r for r in read_metrics(tr.log_path) if "step" in r],
             "eval_fresh": out, "eval_flags": np.asarray(ex["solved"], bool),
             "eval": ev, "workdir": workdir}
+
+
+def train(arm: str, data: str | None = None, workdir: str | None = None,
+          epochs: int | None = None, seed: int = 0, init: str = "jax",
+          device=None, eval_path: str = EVAL, log=print) -> dict:
+    """The script's main for `arm` (`run` at CFG with the ConvLSTM)."""
+    spec = ARMS[arm]
+    data = data or spec["data"]
+    seg = dataset.read_npz(data).seg
+    n = int(len(seg))
+    ds = ({"n": n, "seg_hist": corpus.seg_hist(seg),
+           "sources": [os.path.relpath(data, ROOT)]} if arm == "big3" else
+          {"n": n, "source": os.path.relpath(data, ROOT),
+           "targets": "refined (train/refine_targets.py)"})
+    return run(CFG, lstm_net, data, workdir or os.path.join(OUT_DIR, arm),
+               spec["arm"], ds, epochs, seed, init, device, eval_path, log)
 
 
 def main(argv=None) -> int:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from allocnet_tpu_torch.config import (LossConfig, QPConfig, SolverConfig,
@@ -27,42 +28,46 @@ TIME_MIN = 0.05   # floor of the active times the QP sees
 TRUNC_STD = 0.87962566103423978
 
 
-def _trunc_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
-    """float64 draws of N(0, std^2) truncated at +-2 std, on the CPU, by
-    the inverse CDF of uniforms in [Phi(-2), Phi(2)] (as
-    jax.random.truncated_normal draws them)."""
-    lo, hi = (0.5 * (1.0 + math.erf(v / math.sqrt(2.0))) for v in (-2.0, 2.0))
-    u = lo + (hi - lo) * torch.rand(shape, generator=gen, dtype=torch.float64)
-    z = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
-    return std * z.clamp(-2.0, 2.0)
-
-
 @torch.no_grad()
 def init_params(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """The JAX package's initialization (`init_state`'s `net.init`,
     models/networks.py) of a ConvLSTMAllocNet or ConvMLPAllocNet, in
-    place, from a torch.Generator seeded with `seed` (TrainConfig.seed):
-    every weight of a Linear, Conv and the LSTM from a normal truncated at
-    +-2 sigma with sigma = sqrt(2 / fan_in) / TRUNC_STD (flax's
-    variance_scaling(2.0, "fan_in", "truncated_normal")), fan_in taken in
-    torch layout (in for a Linear or an LSTM matrix, in x kernel for a
-    conv); every bias 0, LayerNorm scales 1, the ConvMLP's last bias 1.0.
-    The draws are not JAX's: the same distribution, another stream.
+    place, with its draws: every weight of a Linear, Conv and the LSTM is
+    flax's variance_scaling(2.0, "fan_in", "truncated_normal") draw under
+    `jax.random.PRNGKey(seed)` (utils/jax_random: the parameter's own key
+    from its path, a normal truncated at +-2 scaled by sqrt(2 / fan_in) /
+    TRUNC_STD, fan_in taken in torch layout: in for a Linear or an LSTM
+    matrix, in x kernel for a conv); every bias 0, LayerNorm scales 1, the
+    ConvMLP's last bias 1.0.  The weights equal the JAX package's CPU
+    `net.init` to 2 units in the last place of the truncation bound.
     Returns `net`."""
+    from allocnet_tpu_torch.models import weights
     from allocnet_tpu_torch.models.networks import ConvMLPAllocNet
+    from allocnet_tpu_torch.utils import jax_random
 
-    gen = torch.Generator().manual_seed(int(seed))
-    for module in net.modules():
+    mlp = isinstance(net, ConvMLPAllocNet)
+    # the maps list each module's parameters in its declaration order,
+    # which is the order flax counts them in
+    paths = weights.MLP_JAX_TO_TORCH if mlp else weights.JAX_TO_TORCH
+    counter, where = {}, {}
+    for path, name in paths.items():
+        counter[path[:-1]] = counter.get(path[:-1], 0) + 1
+        where[name] = (path[:-1], counter[path[:-1]])
+    for module_name, module in net.named_modules():
         for name, p in module.named_parameters(recurse=False):
+            full = f"{module_name}.{name}" if module_name else name
             if isinstance(module, torch.nn.LayerNorm):
                 p.fill_(1.0 if name == "weight" else 0.0)
             elif name.startswith("bias"):
                 p.zero_()
             else:
-                fan_in = p[0].numel()
-                p.copy_(_trunc_normal(p.shape, math.sqrt(2.0 / fan_in)
-                                      / TRUNC_STD, gen))
-    if isinstance(net, ConvMLPAllocNet):
+                std = (np.sqrt(np.float32(2.0 / p[0].numel()))
+                       / np.float32(TRUNC_STD))
+                z = jax_random.truncated_normal(
+                    jax_random.param_key(int(seed), *where[full]),
+                    tuple(p.shape))
+                p.copy_(torch.from_numpy(z * std))
+    if mlp:
         net.output_module[8].bias.fill_(1.0)
     return net
 

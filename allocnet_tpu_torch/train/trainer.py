@@ -7,7 +7,7 @@ device.  Differences from the JAX module:
   * the Trainer takes a built nn.Module with its weights; a run from
     scratch initializes them first with `train_step.init_params(net,
     cfg.train.seed)`, the counterpart of the JAX `init_state`'s
-    `net.init` (the same distributions, another random stream);
+    `net.init` (its very draws, utils/jax_random);
   * checkpoints are `torch.save` files `checkpoint{step}.pt` holding the
     model, optimizer and scheduler state dicts, the step and the epoch,
     not the JAX module's flax msgpack pytrees; the two formats do not read

@@ -114,18 +114,28 @@ def first_launch_per_batch(launch, recorded):
     return rec_launch
 
 
+class _FirstBlock:
+    """`block` that keeps the first (K, signs, reg) it gets in `blocks`;
+    its other attributes (the launch count) are the block's."""
+
+    def __init__(self, block, blocks: list):
+        self.block, self.blocks = block, blocks
+
+    def __call__(self, Kb, sign, reg):
+        if not self.blocks:
+            self.blocks.append((Kb.clone(), sign.clone(), reg))
+        return self.block(Kb, sign, reg)
+
+    def __getattr__(self, name):
+        return getattr(self.block, name)
+
+
 @contextlib.contextmanager
 def first_ldl_block(ldl, blocks: list):
     """Within the block, the first diagonal block that reaches
     `ldl.ldl_block` (K, signs, reg) is appended to `blocks`."""
     block = ldl.ldl_block
-
-    def rec_block(Kb, sign, reg):
-        if not blocks:
-            blocks.append((Kb.clone(), sign.clone(), reg))
-        return block(Kb, sign, reg)
-
-    ldl.ldl_block = rec_block
+    ldl.ldl_block = _FirstBlock(block, blocks)
     try:
         yield blocks
     finally:

@@ -46,7 +46,13 @@ one chunk of 128, two training steps of 128 each of train_big (from the
 JAX init) and finetune_qp (from runs/big3), each with its held-out eval,
 and calibrate_thresh at two thresholds on 32 rows (exact launch counts
 per chunk, step and batch; the kernel against its plain version at the
-training step's B=128 x 100).
+training step's B=128 x 100), then train/ablation's four arms on the
+chain phase's rows: two steps of each from the JAX init (the ConvLSTM and
+the ConvMLP, QP-gradient and supervised losses) and one held-out eval
+batch each (exact launch counts; both kernels against their plain
+versions at the ConvMLP step's B=128), and eval_fresh row 202 through
+the kernel alone, beside itself, beside row 5 and in a batch of 64, its
+outputs bit-equal every time.
 Then the application layer at
 DEPLOY: generates a certified dataset from a synthetic point cloud (PCD
 write, read and crop; corridors and certification held against the CPU's;
@@ -203,6 +209,11 @@ CHAIN_ROWS = 320
 CHAIN_STEPS = 2
 CHAIN_VAL = 32
 CHAIN_GRID = (0.42, 0.5)
+# the ablation phase: every arm one epoch of the chain phase's rows (its
+# CHAIN_STEPS steps) and one held-out eval batch of ABL_EVAL rows; the
+# kernel's batch-mate check on eval_fresh row ABL_ROW beside ABL_MATE
+ABL_EVAL = 256
+ABL_ROW, ABL_MATE, ABL_WIDE = 202, 5, 64
 
 
 # the two kernels' wrappers (set in main): each counts its own launches
@@ -1249,7 +1260,108 @@ def chain_phase(dev):
                      for n in ("train", "finetune")},
         refine_chunk_ms=got["refine"]["chunks"][0]["ms"])
     phase("chain", t0)
-    return k1n, shape
+    return k1n, shape, rows
+
+
+def batch_mate_check(dev):
+    """K1 on eval_fresh row ABL_ROW's chunk inputs (the refinement's
+    cfg, its stored times; built once at B=ABL_WIDE and sliced) alone,
+    beside itself, beside row ABL_MATE and in its batch of ABL_WIDE: the
+    row's outputs must be bit-equal every time.  Not counted."""
+    import numpy as np
+    import torch
+    from allocnet_tpu_torch.ops import admm_chunk, qp
+    from allocnet_tpu_torch.train import refine_targets
+
+    sc = refine_targets.read_corpus(os.path.join(ROOT, "data",
+                                                 "eval_fresh.npz"))
+    cfg = refine_targets.CFG
+    s = cfg.solver
+    idx = np.array([ABL_ROW, ABL_MATE] + [i for i in range(ABL_WIDE)
+                                          if i not in (ABL_ROW, ABL_MATE)]
+                   )[:ABL_WIDE]
+    t = lambda a: torch.as_tensor(a[idx], device=dev)
+    data = qp.build_qp(cfg.qp, t(sc.state), t(sc.hpolys), t(sc.times),
+                       t(sc.seg).long(), device=dev)
+    args = admm_chunk.chunk_inputs(data, s)
+    rest = (s.iters_per_chunk, s.sigma, s.alpha)
+    pick = lambda rows: [a[rows].contiguous() if torch.is_tensor(a)
+                         and a.dim() and a.shape[0] == ABL_WIDE else a
+                         for a in args]
+    runs = {name: admm_chunk.admm_chunk(*pick(torch.as_tensor(rows,
+                                                              device=dev)),
+                                        *rest)
+            for name, rows in (("alone", [0]), ("itself", [0, 0]),
+                               ("row 5", [0, 1]),
+                               (f"B={ABL_WIDE}", list(range(ABL_WIDE))))}
+    torch.cuda.synchronize()
+    want = runs["alone"]
+    same = {name: all(torch.equal(g[0], w[0]) for g, w in zip(got, want))
+            for name, got in runs.items()}
+    print(f"  row {ABL_ROW} through the kernel (B=1, 2, 2, {ABL_WIDE}), "
+          f"outputs bit-equal to B=1: {json.dumps(same)}", flush=True)
+    if not all(same.values()):
+        fail(f"the kernel's outputs for row {ABL_ROW} depend on its "
+             f"batch mates: {same}")
+    return same
+
+
+def ablation_phase(dev, rows):
+    """train/ablation's arms on the chain phase's rows (CHAIN_ROWS, a
+    Loader split of CHAIN_STEPS steps of 128): `ablation.run` for one
+    epoch of each arm at its script's cfg and full width from the JAX
+    init, each ending in an eval over the first ABL_EVAL held-out
+    scenarios (one batch).  Fails unless every arm ran CHAIN_STEPS finite
+    steps and launched K1 and L1 exactly as `ablation.launches_want`
+    gives (the run's own gates d); then K1 and L1 against their plain
+    versions at the ConvMLP QP-gradient step's B=128 (its first launch and
+    polish block) and the kernel's batch-mate check (`batch_mate_check`).
+    Returns K1's launches on the path, the kernels' numbers at that shape
+    and the batch-mate result."""
+    from allocnet_tpu_torch.train import ablation, dataset, heldout_eval
+
+    t0 = time.perf_counter()
+    log = lambda s: print("  " + s, flush=True)
+    inputs = {}
+    with tempfile.TemporaryDirectory() as d:
+        data, ev = os.path.join(d, "rows.npz"), os.path.join(d, "eval.npz")
+        dataset.write_npz(data, rows)
+        dataset.write_npz(ev, heldout_eval.load_scenarios(ABL_EVAL))
+        zero_counts()
+        out = ablation.run(list(ablation.ARMS), dev, data, 1, ev,
+                           out_dir=os.path.join(d, "out"),
+                           work=os.path.join(d, "work"),
+                           kernel_inputs=inputs, log=log)
+    k1n = K1.launches
+    l1_ran("ablation")
+    for arm, r in out["arms"].items():
+        tw, ew = ablation.launches_want(ablation.arm_cfg(arm), r)
+        print(f"  {arm}: {r['steps']} steps, ms per step "
+              f"{r['train']['ms_per_step']:.1f}; step 1 loss "
+              f"{r['step1']['obj']:.3f}; launches {r['train']['k1']} / "
+              f"{r['train']['l1']} (expected {tw}); eval success "
+              f"{r['eval_fresh']['success_rate']:.4f} of {ABL_EVAL}, "
+              f"launches {r['eval']['k1']} / {r['eval']['l1']} (expected "
+              f"{ew})", flush=True)
+        if r["steps"] != CHAIN_STEPS or not out["gates"]["checks"][
+                f"windows_{arm}"]["finite"]:
+            fail(f"ablation {arm} ran {r['steps']} steps or a non-finite "
+                 f"loss")
+        if ((r["train"]["k1"], r["train"]["l1"]) != tw
+                or (r["eval"]["k1"], r["eval"]["l1"]) != ew):
+            fail(f"ablation {arm} launched other counts than its code "
+                 f"gives")
+    shape = ablation.kernel_numbers(ablation.arm_cfg("mlp_qp_grad"),
+                                    *inputs["mlp_qp_grad"], "mlp_qp_grad",
+                                    log)
+    shape["launches"] = {arm: [r["train"]["k1"], r["train"]["l1"],
+                               r["eval"]["k1"], r["eval"]["l1"]]
+                         for arm, r in out["arms"].items()}
+    shape["ms_per_step"] = {arm: r["train"]["ms_per_step"]
+                            for arm, r in out["arms"].items()}
+    same = batch_mate_check(dev)
+    phase("ablation", t0)
+    return k1n, shape, same
 
 
 def application_phases(dev, drv, params, cold_inputs, mission):
@@ -2659,7 +2771,8 @@ def main():
     frontend_launches, frontend_shape, frontend_split = frontend_phase(dev)
     corpus_launches, corpus_shapes = corpus_phase(dev)
     mcn_launches, mcn_shape = mcnemar10k_phase(dev, heldout_flags)
-    chain_launches, chain_shape = chain_phase(dev)
+    chain_launches, chain_shape, chain_rows = chain_phase(dev)
+    abl_launches, abl_shape, abl_mates = ablation_phase(dev, chain_rows)
 
     app_launches, app_shapes = application_phases(
         dev, drv, params, tick_inputs["cold"], missions[0])
@@ -2687,6 +2800,7 @@ def main():
             "corpus": corpus_launches,
             "mcnemar10k": mcn_launches,
             "chain": chain_launches,
+            "ablation": abl_launches,
             **app_launches, **seq10_launches},
         "launches_per_tick": {"cold": launches_per["cold"],
                               "warm": launches_per[0],
@@ -2701,6 +2815,8 @@ def main():
         "corpus_shapes": corpus_shapes,
         "mcnemar10k_shape": mcn_shape,
         "chain_shape": chain_shape,
+        "ablation_shape": {k: v for k, v in abl_shape.items() if k != "l1"},
+        "row_202_batch_mates_bit_equal": abl_mates,
         "certify_shape": app_shapes["certify"],
         "jerk_shape": app_shapes["jerk"],
         "seq10_shape": seq10_shape,
@@ -2728,6 +2844,7 @@ def main():
         "launches_by_path": dict(LDL_LAUNCHES),
         "geometry": ldl_geometry,
         "shapes": ldl_shapes,
+        "ablation_shape": abl_shape["l1"],
         "all_launches_before_after": {
             k: v["launches"] for k, v in ldl_counts.items()
             if isinstance(v, dict)},

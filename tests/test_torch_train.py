@@ -130,17 +130,29 @@ def _sd_of(jparams):
     return weights.from_jax_params(jax.tree.map(np.asarray, jparams))
 
 
-@pytest.mark.parametrize("case", ["lstm", "mlp", "lstm_time_factor"])
+# the ablation's loss weights (train/ablation.ARMS): the supervised LSTM
+# arm's (train_ablation.py), the MLP arms' (mlp_probe.py)
+ABLATION_LOSSES = {
+    "lstm_supervised": dict(w1=0.0, wt=1.0, wc=0.0, wp=20.0),
+    "mlp_qp_grad": dict(w1=17.5, wt=1200.0, wc=0.1, wp=0.0),
+    "mlp_supervised": dict(w1=0.0, wt=1.0, wc=0.0, wp=0.0)}
+
+
+@pytest.mark.parametrize("case", ["lstm", "mlp", "lstm_time_factor",
+                                  *ABLATION_LOSSES])
 def test_two_adam_steps_match_jax(case):
     """Two training steps (net -> QP -> loss -> Adam) from the same
     weights: losses, success and the weights after each step agree with
     JAX.  f64 on both sides; the gradients agree to ~1e-12 and Adam's
-    normalization keeps the updates within rtol 1e-6 of each other."""
+    normalization keeps the updates within rtol 1e-6 of each other.  The
+    ablation's cases take its arms' loss weights (a zero weight still runs
+    the solve and its implicit backward)."""
     B = 3
     sc = scenarios.random_scenarios(QCFG, B, seed=41, min_seg=1)
     tcfg, jtcfg = TrainConfig(), JTrainConfig()
-    lcfg, jlcfg = LossConfig(), JLossConfig()
-    if case == "mlp":
+    w = ABLATION_LOSSES.get(case, {})
+    lcfg, jlcfg = LossConfig(**w), JLossConfig(**w)
+    if case.startswith("mlp"):
         jnet = JConvMLP(seg=5, seq_len=5, hidden_size=32)
         net = ConvMLPAllocNet(seg=5, seq_len=5, hidden_size=32)
     else:
@@ -155,7 +167,7 @@ def test_two_adam_steps_match_jax(case):
     jstate = jts.init_state(jnet, jtcfg, jnp.asarray(sc.state),
                             jnp.asarray(sc.hpolys))
     params = _f32_exact(jstate.params)
-    if case != "mlp":
+    if not case.startswith("mlp"):
         # a time head that starts at ~2 s per segment (a factor of ~2.5
         # over the lower bound), so that the QPs solve and the implicit
         # gradient carries the loss (the MLP head starts at ~1.06 s)

@@ -6,7 +6,11 @@ the JAX package's initialization (train_step.init_params).
 - init_params against `net.init` of the JAX nets: per-tensor std within
   STD_RTOL for tensors of 1,000 entries or more, within SMALL_SIGMAS
   sampling deviations below that; every weight inside +-2 sigma; zero
-  biases, the ConvMLP's last bias 1.0, LayerNorm scales 1; seeded.
+  biases, the ConvMLP's last bias 1.0, LayerNorm scales 1; seeded; the
+  JAX package's very draws for a seed (utils/jax_random: threefry bits
+  and fold_in bit for bit, every weight within INIT_ULPS units in the
+  last place of its truncation bound, at least INIT_EQUAL of each weight
+  tensor bit-equal).
 - the refinement's chunking, padding, parts, assembly, statistics, resume
   and refusal against the JAX script's own run over 40 rows at --chunk 16
   (tests/records/refine_targets_jax40.npz, tests/jax_chain_record.py):
@@ -52,6 +56,10 @@ SMALL_SIGMAS = 4.0
 # excess kurtosis of a normal truncated at +-2 sigma: the sample std of n
 # draws has a relative spread of sqrt((kurtosis - 1) / (4 n))
 TRUNC_KURTOSIS = 2.3642
+# init_params against the JAX package's CPU draws: XLA's float32 log1p
+# and numpy's part by an ulp at most, which the inverse error function
+# carries to 2 ulps of the bound 2 sigma
+INIT_ULPS, INIT_EQUAL = 4, 0.95
 
 
 def _script(name):
@@ -122,6 +130,47 @@ def test_init_params_is_seeded():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["output_module.weight_ih_l0"],
                            c["output_module.weight_ih_l0"])
+
+
+@jax.enable_x64(False)
+def test_jax_random_is_jax():
+    """As the JAX package trains: 32-bit types (this suite turns 64-bit
+    types on, which draws other bits)."""
+    from allocnet_tpu_torch.utils import jax_random
+
+    key = jax.random.PRNGKey(5)
+    ours = jax_random.prng_key(5)
+    assert np.array_equal(np.asarray(key), np.array(ours, np.uint32))
+    want = np.asarray(jax.random.fold_in(key, 123456789))
+    assert np.array_equal(want, np.array(jax_random.fold_in(ours,
+                                                            123456789)))
+    b1, b2 = jax_random.threefry2x32(ours, np.zeros(21, np.uint32),
+                                     np.arange(21, dtype=np.uint32))
+    assert np.array_equal(np.asarray(jax.random.bits(key, (7, 3))),
+                          (b1 ^ b2).reshape(7, 3))
+    z = jax_random.truncated_normal(ours, (4096,))
+    want = np.asarray(jax.random.truncated_normal(key, -2.0, 2.0, (4096,)))
+    assert np.abs(z - want).max() <= INIT_ULPS * np.spacing(np.float32(2))
+    assert np.mean(z == want) >= INIT_EQUAL
+
+
+@pytest.mark.parametrize("kind,seed", [(k, s) for k in sorted(NETS)
+                                       for s in (0, 1)])
+def test_init_params_equals_the_jax_draws(kind, seed):
+    jnet, tnet = NETS[kind]
+    with jax.enable_x64(False):      # as the JAX package trains
+        want = _jax_init(jnet(), seed)
+    got = {k: v.numpy() for k, v in ts_lib.init_params(tnet(), seed)
+           .state_dict().items()}
+    for k, w in want.items():
+        g = got[k]
+        if w.std() == 0:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+            continue
+        sigma = np.sqrt(2.0 / w[0].size) / ts_lib.TRUNC_STD
+        assert np.abs(g - w).max() <= INIT_ULPS * np.spacing(
+            np.float32(2 * sigma)), k
+        assert np.mean(g == w) >= INIT_EQUAL, k
 
 
 class _CaptureTrainer:
@@ -612,36 +661,54 @@ def test_reference_gate_passes_only_the_listed_rows():
         assert sorted(got["explained"]) == [i for i in rows if i == 202]
 
 
-def test_plain_chunk_reads_no_batch_mate():
-    """eval_fresh row 202 through the plain ADMM chunk (the refinement's
-    cfg, its stored times): its outputs are bit-equal with itself or row
-    5 as its batch mate (no step reads across the batch); at B = 1 and
-    B = 2 its outputs after one iteration are within 2 float32 ulps of
-    their largest entry, and the f64 Kx product, the first product to
-    part, parts only by its summation order (1e-12 of its largest
-    entry)."""
+def _row202_inputs(idx):
     sc = refine_targets.read_corpus(os.path.join(ROOT, "data",
                                                  "eval_fresh.npz"))
     cfg = refine_targets.CFG
+    t = lambda a: torch.as_tensor(a[idx])
+    data = qp.build_qp(cfg.qp, t(sc.state), t(sc.hpolys), t(sc.times),
+                       torch.as_tensor(sc.seg[idx]).long(), device="cpu")
+    return cfg, data
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_plain_chunk_reads_no_batch_mate(threads):
+    """eval_fresh row 202 through the plain ADMM chunk (the refinement's
+    cfg, its stored times; its chunk inputs built once in a batch of 64
+    and sliced): its outputs after 20 iterations are bit-equal alone, with
+    itself, with row 5 and in the batch of 64, under one torch thread and
+    under four.  The chunk's matrix-vector products (the f64 Kx product
+    among them) are elementwise products and sums, whose summation order
+    does not depend on the batch size."""
+    cfg, data = _row202_inputs(np.array([202, 5] + list(range(62))))
     s = cfg.solver
+    args = admm_chunk.chunk_inputs(data, s)
+    pick = lambda rows: [a[rows] if torch.is_tensor(a) and a.dim()
+                         and a.shape[0] == 64 else a for a in args]
+    n = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        runs = [admm_chunk.admm_chunk_reference(
+            *pick(torch.as_tensor(rows)), 20, s.sigma, s.alpha)
+            for rows in ([0], [0, 0], [0, 1], list(range(64)))]
+    finally:
+        torch.set_num_threads(n)
+    for got in runs[1:]:
+        for g, w in zip(got, runs[0]):
+            assert torch.equal(g[0], w[0])
 
-    def args(idx):
-        t = lambda a: torch.as_tensor(a[idx])
-        data = qp.build_qp(cfg.qp, t(sc.state), t(sc.hpolys), t(sc.times),
-                           torch.as_tensor(sc.seg[idx]).long(), device="cpu")
-        return admm_chunk.chunk_inputs(data, s)
 
-    run = lambda idx, n: admm_chunk.admm_chunk_reference(
-        *args(np.array(idx)), n, s.sigma, s.alpha)
-    for g, w in zip(run([202, 202], 20), run([202, 5], 20)):
-        assert torch.equal(g[0], w[0])
-    for g, w in zip(run([202], 1), run([202, 202], 1)):
-        assert float((g[0] - w[0]).abs().max()) <= 2.0 ** -22 * max(
-            1.0, float(w[0].abs().max()))
-    kx = args(np.array([202, 202]))[4].double()
-    v = torch.randn(2, kx.shape[-1], dtype=torch.float64,
-                    generator=torch.Generator().manual_seed(0))
-    v[1] = v[0]
-    one = torch.einsum('bnm,bm->bn', kx[:1], v[:1])[0]
-    two = torch.einsum('bnm,bm->bn', kx, v)[0]
-    assert float((one - two).abs().max()) <= 1e-12 * float(one.abs().max())
+def test_row202_admm_reads_no_batch_mate():
+    """The same row's whole ADMM (admm_solve_chunked, the refinement's
+    cfg: every chunk, the rho rescales between them) alone, beside row 5
+    and beside itself, each built at its own batch size: its iterate and
+    residuals are bit-equal.  (The polish after it still takes batched
+    products, which part at B = 1 and B = 2 for this row.)"""
+    outs = []
+    for idx in ([202], [202, 5], [202, 202]):
+        cfg, data = _row202_inputs(np.array(idx))
+        x, z, y, _, _, pri, dua = admm_chunk.admm_solve_chunked(data,
+                                                                cfg.solver)
+        outs.append((x[0], pri[0], dua[0]))
+    for got in outs[1:]:
+        assert all(torch.equal(g, w) for g, w in zip(got, outs[0]))
